@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path: 1080p HEVC all-intra batched decode (batch of
-16, CTU 64) of the committed fixture tests/data/hevc_1080p_intra.h265,
-through parse_hevc_intra_plans -> stack_plans -> decode_frames_hevc_batch.
-Phases, one line each; any failure raises and the exit code is non-zero:
+Drives the port's two paths at 1080p from the committed fixtures under
+tests/data: the HEVC all-intra batched decode (batch of 16, CTU 64;
+parse_hevc_intra_plans -> stack_plans -> decode_frames_hevc_batch) and the
+H.264 all-intra batched decode (batch of 32; parse_h264_intra_symbols ->
+stack_symbols -> decode_frames_batch). Every kernel launch count is set to
+0 just before a path is driven and read just after. Phases, one line each;
+any failure raises and the exit code is non-zero:
 
   1. the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from jmcodec_tpu_torch/csrc
@@ -14,11 +17,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      scan step, every frame/plane equal to the committed libavcodec
      SHA-256 digests, and equal to the same batch decoded with
      walk_reference
-  5. timing (median of 5 after a warm-up): end-to-end fps; device-only
+  5. timing (median of 3 after a warm-up): end-to-end fps; device-only
      fps, with the time at which the host had issued the decode's last
      launch (a device that finishes long after it is the bound, one that
      finishes just after it waited on the host); and the walk kernel
      against walk_reference per scan step
+  6. the dequant_idct kernel against dequant_idct_reference, bit for bit,
+     on seeded inputs: N = 700 and N = 1, every qp 0..51, levels over the
+     full int16 range, with and without the DC splice, int16 and int32
+  7. decode the H.264 fixture on the card: the dequant_idct kernel launched
+     twice (luma, both chroma planes), every frame/plane equal to the
+     committed libavcodec SHA-256 digests, and equal to the same batch
+     decoded with dequant_idct_reference
+  8. timing of the H.264 path as in phase 5, and the dequant_idct kernel
+     against dequant_idct_reference at the path's two shapes
+
+Each kernel's record also carries the least time the card could take for
+its launch (bound_ms): the larger of its bytes (each input read once, each
+output written once) over the HBM rate and its operations, counted from
+this run's inputs, over the int32 ALU rate.
 
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Needs no arguments and no network.
@@ -38,17 +55,30 @@ import time
 import numpy as np
 import torch
 
+from jmcodec_tpu_torch.api.h264_intra import parse_h264_intra_symbols
 from jmcodec_tpu_torch.api.hevc_intra import parse_hevc_intra_plans
 from jmcodec_tpu_torch.kernels import _build
 from jmcodec_tpu_torch.kernels import hevc_tables as HT
 from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
-from jmcodec_tpu_torch.tools.fixtures import (BATCH, fixture_batch_stream,
-                                              fixture_digests, synth_state)
+from jmcodec_tpu_torch.kernels import idct as ID
+from jmcodec_tpu_torch.kernels import recon as RC
+from jmcodec_tpu_torch.kernels import recon_tiles as RT
+from jmcodec_tpu_torch.tools.fixtures import (BATCH, H264_BATCH,
+                                              H264_DIGESTS,
+                                              fixture_batch_stream,
+                                              fixture_digests,
+                                              h264_fixture_batch_stream,
+                                              synth_idct_blocks, synth_state)
 from jmcodec_tpu_torch.utils.device import gpu_name_power, require_cuda
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-REPS = 5
+REPS = 3
+# published peaks of one H100 SXM: HBM bytes/s, and int32 ALU operations/s
+# (the data sheet's 67 TFLOP/s of float32 counts an FMA as two on 128 lanes
+# per SM; an int32 operation counts once on 64)
+HBM_BPS = 3.35e12
+INT32_OPS = 67e12 / 4
 # the slice's two walk shapes at CTU 64 (scan skew 2):
 # (C, max_tu, is_chroma, strong, lanes)
 SHAPES = {"luma": (64, 32, False, True, BATCH * 17),
@@ -133,24 +163,58 @@ def check_walk_shapes(dev):
     return err
 
 
-def main() -> int:
-    dev = require_cuda()
-    card = gpu_name_power()
-    say(card)
-    say(f"phase 1: {torch.cuda.get_device_name(0)} x "
-        f"{torch.cuda.device_count()}, torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+def bound_ms(nbytes, ops):
+    """(the least time the card could take, which of the two sets it, a
+    text with both times)."""
+    by, op = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
+    both = f"bytes {by:.5f} ms, operations {op:.5f} ms"
+    return (by, "bytes", both) if by >= op else (op, "operations", both)
 
-    t0 = time.perf_counter()
-    lib = _build.build(force=True)
-    ptxas = [ln.strip() for ln in _build.last_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    say(f"phase 2: built {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def walk_bound(F, Z, resid, tu, mode, C, max_tu):
+    """Bound of one walk launch. Bytes: F, Z, resid, tu, mode in, F out.
+    Operations, for the TUs this step's tu maps hold: per TU of size n, 7
+    per reference sample (gather, availability, substitution, filter) and
+    8 per predicted pixel (two-tap interpolation, residual add, clip)."""
+    tu_h = tu.cpu().numpy()
+    ops = 0
+    for n, x0, y0 in HT.zorder_candidates(C, max_tu):
+        k = int((tu_h[:, y0 // 4, x0 // 4] == n.bit_length() - 1).sum())
+        ops += k * (7 * (4 * n + 1) + 8 * n * n)
+    return bound_ms(nbytes(F, Z, resid, tu, mode, F), ops)
+
+
+def idct_bound(coeffs, qp_blk, dc=None, dc_mask=None):
+    """Bound of one dequant_idct launch. Bytes: levels, qp, dc, mask in,
+    int32 residual out. Operations per block: 32 multiplies (scale, shift)
+    and 80 adds and shifts (two butterfly passes, rounding)."""
+    n = coeffs.shape[0]
+    return bound_ms(nbytes(coeffs, qp_blk, dc, dc_mask) + n * 64, n * 112)
+
+
+def check_digests(planes, digests, what):
+    out = [t.cpu().numpy() for t in planes]
+    for f in range(out[0].shape[0]):
+        for k, plane in enumerate("YUV"):
+            h = hashlib.sha256(np.ascontiguousarray(out[k][f])).hexdigest()
+            check(h == digests[f % len(digests)][plane],
+                  f"{what} frame {f} {plane}: digest mismatch")
+
+
+def reset_counts():
+    HW.LAUNCHES = 0
+    ID.LAUNCHES = 0
+
+
+def hevc_path(dev, card):
+    """Phases 3-5; returns the hevc_walk record and the path's figures."""
     err = check_walk_shapes(dev)
 
-    # ---- phase 4: the main path on the card ----
+    # ---- phase 4: the path on the card ----
     digests = fixture_digests()
     stream = fixture_batch_stream()
     plans = parse_hevc_intra_plans(stream, workers=os.cpu_count() or 1)
@@ -161,17 +225,13 @@ def main() -> int:
     steps = ctb_w + HT.skew_for(C) * (ctb_h - 1)
     args = HTT.stack_plans(plans, dev)
     torch.cuda.synchronize()
-    HW.LAUNCHES = 0
+    reset_counts()
     Y, U, V = HTT.decode_frames_hevc_batch(*args)
     torch.cuda.synchronize()
     launches = HW.LAUNCHES
     check(launches == 2 * steps, f"{launches} walk launches, {steps} steps")
-    out = [t.cpu().numpy() for t in (Y, U, V)]
-    for f in range(BATCH):
-        for k, plane in enumerate("YUV"):
-            h = hashlib.sha256(np.ascontiguousarray(out[k][f])).hexdigest()
-            check(h == digests[f % len(digests)][plane],
-                  f"frame {f} {plane}: digest mismatch")
+    check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC path")
+    check_digests((Y, U, V), digests, "hevc")
     ref = HTT.decode_frames_hevc_batch(*args, walk_fn=HW.walk_reference)
     torch.cuda.synchronize()
     for a, b, plane in zip((Y, U, V), ref, "YUV"):
@@ -182,6 +242,7 @@ def main() -> int:
         f"steps, hevc_walk launched {launches} times; all {BATCH * 3} "
         f"planes match the libavcodec SHA-256 digests and the "
         f"walk_reference decode")
+    del ref
 
     # ---- phase 5: timing ----
     workers = os.cpu_count() or 1
@@ -207,7 +268,7 @@ def main() -> int:
         return HW.walk(F, Z, resid, tu, mode, **kw)
 
     HTT.decode_frames_hevc_batch(*args, walk_fn=capture)
-    step_ms = {}
+    step_ms, bounds = {}, {}
     for key in ("luma", "chroma"):
         (wa, kw) = captured[key][steps // 2]
         got = HW.walk(*wa, **kw)
@@ -218,6 +279,7 @@ def main() -> int:
         check(e == 0, f"{key} step: kernel != walk_reference")
         step_ms[key] = (event_ms(lambda: HW.walk(*wa, **kw), 50),
                         event_ms(lambda: HW.walk_reference(*wa, **kw), 3))
+        bounds[key] = walk_bound(*wa, kw["C"], kw["max_tu"])
     say(f"phase 5 [{card}]: end-to-end {BATCH / t_e2e:.2f} fps "
         f"({t_e2e * 1000:.1f} ms per batch of {BATCH}, parse on {workers} "
         f"threads + stack_plans + H2D + decode); device-only "
@@ -228,23 +290,192 @@ def main() -> int:
     for key, (k_ms, p_ms) in step_ms.items():
         say(f"phase 5 [{card}]: walk step {key} (B="
             f"{captured[key][0][0][0].shape[0]}): kernel {k_ms:.4f} ms, "
-            f"walk_reference {p_ms:.2f} ms")
+            f"walk_reference {p_ms:.2f} ms, bound {bounds[key][0]:.5f} ms "
+            f"({bounds[key][2]})")
 
+    mean = lambda d, i: statistics.mean(v[i] for v in d.values())
     rec = {"name": "hevc_walk", "route": "cuda",
            "source": "jmcodec_tpu_torch/csrc/hevc_walk.cu",
            "replaces": "jmcodec_tpu/kernels/hevc_walk_pallas.py:560",
            "launches": launches, "max_abs_err": err,
-           "ms": (step_ms["luma"][0] + step_ms["chroma"][0]) / 2,
-           "plain_ms": (step_ms["luma"][1] + step_ms["chroma"][1]) / 2,
+           "ms": mean(step_ms, 0), "plain_ms": mean(step_ms, 1),
+           "bound_ms": mean(bounds, 0),
+           "bound_by": max(bounds.values())[1], "library_ms": None,
            "ms_luma": step_ms["luma"][0], "plain_ms_luma": step_ms["luma"][1],
+           "bound_ms_luma": bounds["luma"][0],
            "ms_chroma": step_ms["chroma"][0],
-           "plain_ms_chroma": step_ms["chroma"][1]}
-    say(json.dumps({"slice": "hevc 1080p all-intra batch decode",
-                    "batch": BATCH, "e2e_fps": BATCH / t_e2e,
-                    "device_fps": BATCH / t_dev,
-                    "device_only_issued_ms": t_issued * 1000,
-                    "device_only_wall_ms": t_dev * 1000, "card": card}))
-    say(json.dumps({"kernels": [rec]}))
+           "plain_ms_chroma": step_ms["chroma"][1],
+           "bound_ms_chroma": bounds["chroma"][0]}
+    figures = {"slice": "hevc 1080p all-intra batch decode",
+               "batch": BATCH, "e2e_fps": BATCH / t_e2e,
+               "device_fps": BATCH / t_dev,
+               "device_only_issued_ms": t_issued * 1000,
+               "device_only_wall_ms": t_dev * 1000, "card": card}
+    return rec, figures
+
+
+def check_idct_kernel(dev):
+    """Phase 6: kernel == dequant_idct_reference on seeded inputs."""
+    err = 0
+    for N in (700, 1):
+        c16, qp, dc, mask = (torch.from_numpy(a).to(dev)
+                             for a in synth_idct_blocks(N, seed=5))
+        if N == 700:
+            check(set(qp.tolist()) == set(range(52)), "qp values missing")
+            check(int(c16.min()) < -32000 and int(c16.max()) > 32000,
+                  "levels do not span int16")
+            check(not torch.equal(ID.dequant_idct_reference(c16, qp),
+                                  ID.dequant_idct_reference(c16, qp, dc,
+                                                            mask)),
+                  "the DC splice changed nothing")
+        for coeffs in (c16, c16.to(torch.int32)):
+            for splice in ((), (dc, mask), (dc,)):
+                got = ID.dequant_idct_blocks(coeffs, qp, *splice)
+                want = ID.dequant_idct_reference(coeffs, qp, *splice)
+                torch.cuda.synchronize()
+                e = max_abs(got, want)
+                check(e == 0, f"dequant_idct N={N} {coeffs.dtype} "
+                              f"splice={len(splice)}: kernel != reference")
+                err = max(err, e)
+    say(f"phase 6: dequant_idct kernel == dequant_idct_reference at N=700 "
+        f"and N=1, qp 0..51, int16 and int32 levels, with and without the "
+        f"DC splice, max_abs_err {err}")
+    return err
+
+
+def h264_path(dev, card):
+    """Phases 6-8; returns the dequant_idct record and the path's figures."""
+    err = check_idct_kernel(dev)
+
+    # ---- phase 7: the path on the card ----
+    digests = fixture_digests(H264_DIGESTS)
+    stream = h264_fixture_batch_stream()
+    workers = os.cpu_count() or 1
+    pics = parse_h264_intra_symbols(stream, workers=workers)
+    check(len(pics) == H264_BATCH, f"{len(pics)} pictures parsed")
+    fss = [fs for fs, _ in pics]
+    fs0, sps = pics[0]
+    mbh, mbw = fs0.mb_height, fs0.mb_width
+    w, h = sps.width, sps.height
+    crop = lambda Y, U, V: (Y[:, :h, :w], U[:, :h // 2, :w // 2],
+                            V[:, :h // 2, :w // 2])
+    args = RC.stack_symbols(fss, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = RT.decode_frames_batch(mbh, mbw, *args, deblock=True)
+    torch.cuda.synchronize()
+    launches = ID.LAUNCHES
+    check(launches == 2, f"{launches} dequant_idct launches, want 2 (luma, "
+                         f"both chroma planes)")
+    check(HW.LAUNCHES == 0, "hevc_walk launched on the H.264 path")
+    check(out[0].dtype == torch.uint8
+          and tuple(out[0].shape) == (H264_BATCH, mbh * 16, mbw * 16),
+          f"Y {out[0].dtype} {tuple(out[0].shape)}")
+    check_digests(crop(*out), digests, "h264")
+    ref = RT.decode_frames_batch(mbh, mbw, *args, deblock=True,
+                                 residual_fn=ID.dequant_idct_reference)
+    torch.cuda.synchronize()
+    for a, b, plane in zip(out, ref, "YUV"):
+        e = max_abs(a, b)
+        err = max(err, e)
+        check(e == 0, f"decode != dequant_idct_reference decode ({plane})")
+    steps = mbw + 2 * (mbh - 1)
+    say(f"phase 7: {H264_BATCH}x {w}x{h} H.264: {steps} wavefront steps of "
+        f"{mbh} lanes per frame, dequant_idct launched {launches} times; "
+        f"all {H264_BATCH * 3} planes match the libavcodec SHA-256 digests "
+        f"and the dequant_idct_reference decode")
+    del ref, out
+
+    # ---- phase 8: timing ----
+    def e2e():
+        ps = parse_h264_intra_symbols(stream, workers=workers)
+        RT.decode_frames_batch(mbh, mbw, *RC.stack_symbols(
+            [fs for fs, _ in ps], dev), deblock=True)
+
+    def device_only():
+        RT.decode_frames_batch(mbh, mbw, *args, deblock=True)
+
+    e2e()
+    t_e2e, _ = sync_time(e2e, REPS)
+    t_dev, t_issued = sync_time(device_only, REPS)
+
+    # the kernel at the path's two shapes, on the path's own inputs
+    captured = []
+
+    def capture(*a):
+        captured.append(a)
+        return ID.dequant_idct_blocks(*a)
+
+    RC._residuals(*(args[k] for k in (5, 6, 7, 8)), args[1].to(torch.int32),
+                  args[0].to(torch.int32), args[14], args[15], capture)
+    check(len(captured) == 2, f"{len(captured)} residual stages")
+    k_ms, p_ms, bounds = {}, {}, {}
+    for key, a in zip(("luma", "chroma"), captured):
+        got = ID.dequant_idct_blocks(*a)
+        want = ID.dequant_idct_reference(*a)
+        torch.cuda.synchronize()
+        e = max_abs(got, want)
+        err = max(err, e)
+        check(e == 0, f"{key}: kernel != dequant_idct_reference")
+        del got, want
+        k_ms[key] = event_ms(lambda: ID.dequant_idct_blocks(*a), 20)
+        p_ms[key] = event_ms(lambda: ID.dequant_idct_reference(*a), 3)
+        bounds[key] = idct_bound(*a)
+    say(f"phase 8 [{card}]: end-to-end {H264_BATCH / t_e2e:.2f} fps "
+        f"({t_e2e * 1000:.1f} ms per batch of {H264_BATCH}, parse on "
+        f"{workers} threads + stack_symbols + H2D + decode); device-only "
+        f"{H264_BATCH / t_dev:.2f} fps ({t_dev * 1000:.1f} ms); the host "
+        f"had issued the device-only decode's last launch at "
+        f"{t_issued * 1000:.1f} ms, the device finished "
+        f"{(t_dev - t_issued) * 1000:.1f} ms later")
+    for key, a in zip(("luma", "chroma"), captured):
+        say(f"phase 8 [{card}]: dequant_idct {key} (N={a[0].shape[0]}, "
+            f"{'dc + mask' if len(a) == 4 else 'dc'}): kernel "
+            f"{k_ms[key]:.4f} ms, dequant_idct_reference {p_ms[key]:.2f} "
+            f"ms, bound {bounds[key][0]:.5f} ms ({bounds[key][2]})")
+
+    mean = lambda d: statistics.mean(d.values())
+    rec = {"name": "dequant_idct", "route": "cuda",
+           "source": "jmcodec_tpu_torch/csrc/dequant_idct.cu",
+           "replaces": "jmcodec_tpu/kernels/pallas_idct.py:83",
+           "launches": launches, "max_abs_err": err,
+           "ms": mean(k_ms), "plain_ms": mean(p_ms),
+           "bound_ms": statistics.mean(b[0] for b in bounds.values()),
+           "bound_by": max(bounds.values())[1], "library_ms": None,
+           "ms_luma": k_ms["luma"], "plain_ms_luma": p_ms["luma"],
+           "bound_ms_luma": bounds["luma"][0],
+           "ms_chroma": k_ms["chroma"], "plain_ms_chroma": p_ms["chroma"],
+           "bound_ms_chroma": bounds["chroma"][0]}
+    figures = {"slice": "h264 1080p all-intra batch decode",
+               "batch": H264_BATCH, "e2e_fps": H264_BATCH / t_e2e,
+               "device_fps": H264_BATCH / t_dev,
+               "device_only_issued_ms": t_issued * 1000,
+               "device_only_wall_ms": t_dev * 1000, "card": card}
+    return rec, figures
+
+
+def main() -> int:
+    dev = require_cuda()
+    card = gpu_name_power()
+    say(card)
+    say(f"phase 1: {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}, torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    lib = _build.build(force=True)
+    ptxas = [ln.strip() for ln in _build.last_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    say(f"phase 2: built {os.path.relpath(lib, ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
+
+    walk_rec, hevc_fig = hevc_path(dev, card)
+    torch.cuda.empty_cache()
+    idct_rec, h264_fig = h264_path(dev, card)
+
+    say(json.dumps(hevc_fig))
+    say(json.dumps(h264_fig))
+    say(json.dumps({"kernels": [walk_rec, idct_rec]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

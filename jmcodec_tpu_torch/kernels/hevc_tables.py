@@ -1,9 +1,8 @@
 """Static tables of the HEVC intra decode, as numpy (no torch, no jax).
 
-Re-derived from the spec tables in jmcodec_tpu.codec.hevc.intra (ANGLES,
-INV_ANGLE, _FILTER_THRESH); tests hold each one equal to its counterpart
-in jmcodec_tpu.kernels.hevc_tiles, which cannot be imported here because
-it imports jax.
+Derived from the spec tables in codec/hevc/intra.py (ANGLES, INV_ANGLE,
+_FILTER_THRESH); tests hold each one equal to its counterpart in
+jmcodec_tpu.kernels.hevc_tiles.
 
 Reference-vector layout (the substitution scan order of 8.4.4.2.2), for a
 TU of size n: v[0] = p[-1][2n-1] (bottom-most left) ... v[2n-1] =
@@ -16,7 +15,7 @@ import functools
 
 import numpy as np
 
-from jmcodec_tpu.codec.hevc import intra as HIP
+from ..codec.hevc import intra as HIP
 
 
 @functools.lru_cache(maxsize=8)

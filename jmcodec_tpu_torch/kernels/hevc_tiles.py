@@ -11,8 +11,9 @@
   3. deblock    - whole-plane vectorised V pass then H pass (8.7.2)
   4. SAO        - per-CTB parameters broadcast to pixels (8.7.3)
 
-Every function takes tensors on one device and keeps them there; the
-device is the caller's choice (stack_plans / decode_plans_batch take it).
+Every function takes tensors on one device and keeps them there. The
+entry points that take plans (stack_plans, decode_plans_batch, decode_plan)
+put them on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -20,26 +21,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jmcodec_tpu.codec.hevc import transform as HTR
-from jmcodec_tpu.codec.hevc.plan import ZIDX_NONE
-
+from ..codec.hevc import transform as HTR
+from ..codec.hevc.plan import ZIDX_NONE
+from ..utils.device import require_cuda
 from . import hevc_tables as HT
+from ._tables import device_table as _t
 from .hevc_walk import walk
 
 _I32 = torch.int32
-_TABLES = {}
-
-
-def _t(a, device, dtype=_I32):
-    """The constant table `a` on `device`, copied there once: a copy from
-    host memory synchronises the stream, so after its first call on a
-    device the decode makes none. The cache holds `a`, so its id stays
-    unique while the entry lives."""
-    key = (id(a), str(device), dtype)
-    if key not in _TABLES:
-        _TABLES[key] = (a, torch.as_tensor(np.asarray(a), dtype=dtype,
-                                           device=device))
-    return _TABLES[key][1]
 
 
 # ---------------------------------------------------------------------------
@@ -448,11 +437,14 @@ def _geometry(p):
             not p.deblock_disabled, p.pw, p.ph, p.width, p.height)
 
 
-def stack_plans(plans, device):
+def stack_plans(plans, device=None):
     """Same-geometry HevcFramePlans -> the argument tuple of
-    decode_frames_hevc_batch, its tensors on `device`. Plan tensors travel
-    in compact dtypes (coefficient levels fit int16, maps int8) and are
-    widened once on the device."""
+    decode_frames_hevc_batch, its tensors on `device` (None: the card,
+    which must be there). Plan tensors travel in compact dtypes
+    (coefficient levels fit int16, maps int8) and are widened once on the
+    device."""
+    if device is None:
+        device = require_cuda()
     st = lambda f, dt: torch.from_numpy(
         np.stack([f(p) for p in plans]).astype(dt)).to(device)
     sc = lambda f: torch.tensor([f(p) for p in plans], dtype=_I32,
@@ -487,15 +479,16 @@ def _check_plans(plans):
             raise NotImplementedError("mixed-geometry plan batch")
 
 
-def decode_plans_batch(plans, device):
+def decode_plans_batch(plans, device=None):
     """Same-geometry HevcFramePlans -> batched (Y, U, V) uint8 [F, h, w]
-    on `device`."""
+    on `device` (None: the card)."""
     _check_plans(plans)
     return decode_frames_hevc_batch(*stack_plans(plans, device))
 
 
-def decode_plan(plan, device, coded: bool = False):
-    """One HevcFramePlan -> (Y, U, V) uint8 on `device` (a batch of one).
+def decode_plan(plan, device=None, coded: bool = False):
+    """One HevcFramePlan -> (Y, U, V) uint8 on `device` (None: the card), a
+    batch of one.
     coded=True returns the coded-size planes, before the conformance-window
     crop, as a reference picture store needs them."""
     _check_plans([plan])

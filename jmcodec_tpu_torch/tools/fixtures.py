@@ -1,6 +1,7 @@
-"""Inputs for checks and timings of the port: the committed 1080p HEVC
-all-intra fixture at the smoke's batch, and seeded synthetic TU-walk states
-for holding the hevc_walk kernel against walk_reference."""
+"""Inputs for checks and timings of the port: the committed 1080p HEVC and
+H.264 all-intra fixtures at the smoke's batches, seeded synthetic inputs
+for holding each kernel against its plain version, and copies of reference
+objects into the port's own types."""
 
 from __future__ import annotations
 
@@ -9,27 +10,73 @@ import os
 
 import numpy as np
 
-from jmcodec_tpu.codec.hevc.plan import ZIDX_NONE
+from ..codec.h264.symbols import FrameSymbols
+from ..codec.hevc.plan import ZIDX_NONE, HevcFramePlan
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 FIXTURE = os.path.join(ROOT, "tests", "data", "hevc_1080p_intra.h265")
 DIGESTS = os.path.join(ROOT, "tests", "data", "hevc_1080p_intra.sha256.json")
-# frames per decode batch, as bench.py's HEVC 1080p headline decodes them
+H264_FIXTURE = os.path.join(ROOT, "tests", "data", "h264_1080p_intra.h264")
+H264_DIGESTS = os.path.join(ROOT, "tests", "data",
+                            "h264_1080p_intra.sha256.json")
+# frames per decode batch, as bench.py's 1080p figures decode them
 BATCH = 16
+H264_BATCH = 32
 
 
-def fixture_digests() -> list[dict]:
-    """Per-frame {"Y", "U", "V"} SHA-256 of the fixture's libavcodec decode."""
-    with open(DIGESTS) as f:
+def fixture_digests(path: str = DIGESTS) -> list[dict]:
+    """Per-frame {"Y", "U", "V"} SHA-256 of a fixture's libavcodec decode."""
+    with open(path) as f:
         return json.load(f)["frames"]
 
 
-def fixture_batch_stream() -> bytes:
-    """The fixture repeated to BATCH pictures (its pictures are all IDR)."""
-    with open(FIXTURE, "rb") as f:
+def _repeated(stream_path: str, digests_path: str, batch: int) -> bytes:
+    with open(stream_path, "rb") as f:
         one = f.read()
-    return one * (BATCH // len(fixture_digests()))
+    return one * (batch // len(fixture_digests(digests_path)))
+
+
+def fixture_batch_stream() -> bytes:
+    """The HEVC fixture repeated to BATCH pictures (all are IDR)."""
+    return _repeated(FIXTURE, DIGESTS, BATCH)
+
+
+def h264_fixture_batch_stream() -> bytes:
+    """The H.264 fixture repeated to H264_BATCH pictures (all are IDR; the
+    repeated parameter sets are the same ones)."""
+    return _repeated(H264_FIXTURE, H264_DIGESTS, H264_BATCH)
+
+
+def synth_idct_blocks(N: int, seed: int = 0):
+    """Seeded inputs of dequant_idct_blocks as numpy arrays: levels [N, 4,
+    4] int16 over the full int16 range, qp [N] int32 cycling through every
+    value 0..51 (shuffled), dc [N] int32 over +-2^20 and a mask [N] bool
+    that sets about one block in three."""
+    rng = np.random.default_rng(seed)
+    coeffs = rng.integers(-32768, 32768, (N, 4, 4)).astype(np.int16)
+    qp = rng.permutation(np.arange(N) % 52).astype(np.int32)
+    dc = rng.integers(-(1 << 20), 1 << 20, N).astype(np.int32)
+    mask = rng.integers(0, 3, N) == 0
+    return coeffs, qp, dc, mask
+
+
+def _copy_fields(src, dst):
+    for name, val in vars(src).items():
+        setattr(dst, name, val.copy() if isinstance(val, np.ndarray) else val)
+    return dst
+
+
+def symbols_from_reference(fs) -> FrameSymbols:
+    """A FrameSymbols-shaped object of another package (duck-typed: the
+    same attributes) copied into the port's FrameSymbols."""
+    return _copy_fields(fs, FrameSymbols(fs.mb_width, fs.mb_height))
+
+
+def plan_from_reference(plan) -> HevcFramePlan:
+    """A HevcFramePlan-shaped object of another package copied into the
+    port's HevcFramePlan."""
+    return _copy_fields(plan, HevcFramePlan.__new__(HevcFramePlan))
 
 
 def synth_state(C: int, max_tu: int, B: int, seed: int = 0, skew: int = 2):

@@ -36,6 +36,48 @@ def _union_us(intervals):
     return total
 
 
+def profile_decode(decode, title: str, trace=None, stages=()):
+    """Run decode() once under torch.profiler (after a warm-up run) and
+    print the card, the device's busy time, the launches and the top
+    kernels. stages: names of record_function ranges that decode() opens
+    and closes with a synchronise; each gets its own line with its host
+    wall time, launches and device busy time."""
+    decode()                                        # warm-up: builds, tables
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    # device-side events; a record_function range shows up there too
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in stages]
+    span = lambda e: (e.time_range.start, e.time_range.end)
+    busy_us = _union_us(span(e) for e in kernels)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    print(gpu_name_power())
+    print(f"{title}: device busy {busy_us / 1e3:.2f} ms over {len(kernels)} "
+          f"kernel launches (profiled decode)")
+    for name in stages:
+        for r in (e for e in events if e.name == name
+                  and e.device_type == DeviceType.CPU):
+            s, t = span(r)
+            inside = [e for e in kernels if s <= e.time_range.start < t]
+            print(f"  stage {name}: host wall {(t - s) / 1e3:.2f} ms "
+                  f"(profiled), {len(inside)} launches, device busy "
+                  f"{_union_us(span(e) for e in inside) / 1e3:.2f} ms")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (us, n) in ranked[:15]:
+        print(f"  {us / 1e3:9.2f} ms {n:6d}x  {name[:100]}")
+    if trace:
+        os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+        prof.export_chrome_trace(trace)
+        print(f"trace: {trace}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", help="write the chrome trace to this path")
@@ -46,30 +88,9 @@ def main(argv=None) -> int:
     if len(plans) != BATCH:
         raise RuntimeError(f"{len(plans)} pictures parsed, want {BATCH}")
     tensors = HTT.stack_plans(plans, dev)
-    HTT.decode_frames_hevc_batch(*tensors)          # warm-up: builds, tables
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        HTT.decode_frames_hevc_batch(*tensors)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = _union_us((e.time_range.start, e.time_range.end)
-                        for e in kernels)
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.end - e.time_range.start
-        by_name[e.name][1] += 1
-    print(gpu_name_power())
-    print(f"batch {BATCH} x {plans[0].width}x{plans[0].height}: device busy "
-          f"{busy_us / 1e3:.2f} ms over {len(kernels)} kernel launches "
-          f"(profiled decode)")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"  {us / 1e3:9.2f} ms {n:6d}x  {name[:100]}")
-    if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
-                    exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-        print(f"trace: {args.trace}")
+    profile_decode(lambda: HTT.decode_frames_hevc_batch(*tensors),
+                   f"batch {BATCH} x {plans[0].width}x{plans[0].height}",
+                   args.trace)
     return 0
 
 

@@ -25,9 +25,16 @@ import numpy as np
 import pytest
 import torch
 
-from jmcodec_tpu.codec.hevc.refdec import HevcRefDecoder
+from jmcodec_tpu import native as jax_native
+from jmcodec_tpu.codec.hevc import nal as JHN
+from jmcodec_tpu.codec.hevc import params as JHP
+from jmcodec_tpu.codec.hevc import plan as JPLAN
+from jmcodec_tpu.codec.hevc import slicehdr as JHS
+from jmcodec_tpu.codec.hevc.refdec import HevcRefDecoder, _substream_offsets
 from jmcodec_tpu_torch.api.hevc_intra import parse_hevc_intra_plans
+from jmcodec_tpu_torch.codec.hevc.plan import HevcFramePlan
 from jmcodec_tpu_torch.kernels import hevc_tiles as PT
+from jmcodec_tpu_torch.tools.fixtures import plan_from_reference
 
 from util_oracle import have_oracle, oracle_decode
 
@@ -89,6 +96,59 @@ def test_decode_plan_is_a_batch_of_one(decoded):
     Yc, Uc, Vc = PT.decode_plan(p, "cpu", coded=True)
     assert Yc.shape == (p.ph, p.pw) and Uc.shape == (p.ph // 2, p.pw // 2)
     assert np.array_equal(Yc[:p.height, :p.width].numpy(), got[0][1])
+
+
+def _reference_plans(stream):
+    """HevcFramePlans filled by jmcodec_tpu's own host modules."""
+    units = list(JHN.parse_nal_units(stream))
+    sps = [JHP.parse_sps(u.rbsp) for u in units
+           if u.nal_unit_type == JHN.NAL_SPS][0]
+    pps = [JHP.parse_pps(u.rbsp) for u in units
+           if u.nal_unit_type == JHN.NAL_PPS][0]
+    plans = []
+    for u in (u for u in units if u.is_slice):
+        hdr = JHS.parse_slice_header(u.rbsp, u.nal_unit_type, sps, pps)
+        plan = JPLAN.HevcFramePlan.create(sps)
+        plan.record_slice(hdr, pps)
+        jax_native.hevc_fill_plan(plan, hdr, sps, pps, u.rbsp,
+                                  _substream_offsets(hdr, u.emu_positions))
+        plans.append(plan)
+    return plans
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_parser_fills_the_same_plans(decoded, name):
+    """The port's own copies of the host modules and the native parser
+    fill the plans jmcodec_tpu's fill; plan_from_reference carries a
+    jmcodec_tpu plan into the port's type, and it decodes the same."""
+    s, plans, got, _ = decoded[name]
+    theirs = _reference_plans(s)
+    assert len(theirs) == len(plans)
+    for a, b in zip(plans, theirs):
+        assert vars(a).keys() == vars(b).keys()
+        for f, v in vars(b).items():
+            if isinstance(v, np.ndarray):
+                assert np.array_equal(getattr(a, f), v), f
+            else:
+                assert getattr(a, f) == v, f
+    copies = [plan_from_reference(p) for p in theirs]
+    assert all(type(c) is HevcFramePlan for c in copies)
+    assert copies[0].coeff_y is not theirs[0].coeff_y
+    Y, U, V = PT.decode_plans_batch(copies[:1], "cpu")
+    for k, a in enumerate((Y, U, V)):
+        assert np.array_equal(a[0].numpy(), got[k][0])
+
+
+def test_entry_points_need_the_card_unless_told(decoded):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    plans = decoded["128x96_ctu32"][1]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PT.stack_plans(plans)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PT.decode_plans_batch(plans)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PT.decode_plan(plans[0])
 
 
 def test_threaded_parse_matches_serial():
