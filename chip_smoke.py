@@ -12,7 +12,10 @@ any failure raises and the exit code is non-zero:
   1. the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from jmcodec_tpu_torch/csrc
   3. the hevc_walk kernel against walk_reference, bit for bit, on seeded
-     synthetic states at both of the slice's shapes
+     synthetic states at both of the slice's shapes: the usual ones (every
+     TU size, all 35 modes, the strong filter) and the hard ones (all-4x4
+     lanes, lanes without a TU, z-scan Z, unavailable border patches,
+     residuals at the int16 extremes), also for one lane and an odd count
   4. decode the fixture on the card: the walk kernel launched twice per
      scan step, every frame/plane equal to the committed libavcodec
      SHA-256 digests, and equal to the same batch decoded with
@@ -20,8 +23,10 @@ any failure raises and the exit code is non-zero:
   5. timing (median of 3 after a warm-up): end-to-end fps; device-only
      fps, with the time at which the host had issued the decode's last
      launch (a device that finishes long after it is the bound, one that
-     finishes just after it waited on the host); and the walk kernel
-     against walk_reference per scan step
+     finishes just after it waited on the host); the walk kernel against
+     walk_reference at the middle scan step, with that step's active TUs
+     per lane and the kernel's cycles per active TU of its longest lane;
+     and the kernel's time at every scan step
   6. the dequant_idct kernel against dequant_idct_reference, bit for bit,
      on seeded inputs: N = 700 and N = 1, every qp 0..51, levels over the
      full int16 range, with and without the DC splice, int16 and int32
@@ -31,6 +36,9 @@ any failure raises and the exit code is non-zero:
      decoded with dequant_idct_reference
   8. timing of the H.264 path as in phase 5, and the dequant_idct kernel
      against dequant_idct_reference at the path's two shapes
+
+With --only hevc or --only h264 just that path is driven (for work on one
+kernel; the run then prints no kernels' record that is complete).
 
 Each kernel's record also carries the least time the card could take for
 its launch (bound_ms): the larger of its bytes (each input read once, each
@@ -45,6 +53,7 @@ The line before the last is the kernels' JSON record, the last line
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
@@ -69,8 +78,10 @@ from jmcodec_tpu_torch.tools.fixtures import (BATCH, H264_BATCH,
                                               fixture_batch_stream,
                                               fixture_digests,
                                               h264_fixture_batch_stream,
-                                              synth_idct_blocks, synth_state)
-from jmcodec_tpu_torch.utils.device import gpu_name_power, require_cuda
+                                              synth_idct_blocks, synth_state,
+                                              synth_state_hard)
+from jmcodec_tpu_torch.utils.device import (gpu_name_power, gpu_sm_clock_mhz,
+                                            require_cuda)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = 3
@@ -109,11 +120,14 @@ def sync_time(fn, reps):
 
 
 def event_ms(fn, reps):
-    """Mean device time of fn() in ms over reps back-to-back runs."""
+    """Mean device time of fn() in ms over reps back-to-back runs. The runs
+    are queued behind a spin kernel of a few ms, so that the host's launch
+    rate (tens of us a call from Python) does not pace a short kernel."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e5 * reps) + 4_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -130,11 +144,21 @@ def max_abs(a, b):
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max().item())
 
 
+def active_tus(tu, C, max_tu):
+    """Active TUs per lane of a walk state's TU map: [B] int64 (numpy)."""
+    tu = np.asarray(tu)
+    return sum((tu[:, y0 // 4, x0 // 4] == n.bit_length() - 1).astype(np.int64)
+               for n, x0, y0 in HT.zorder_candidates(C, max_tu))
+
+
 def check_walk_shapes(dev):
-    """Phase 3: kernel == walk_reference on synthetic states with every TU
-    size and all 35 modes active, and the strong filter taken."""
+    """Phase 3: kernel == walk_reference on the usual synthetic states
+    (every TU size and all 35 modes active, the strong filter taken) and on
+    the hard ones, at the slice's lane counts, for one lane and for an odd
+    number of lanes."""
     err = 0
     for name, (C, max_tu, chroma, strong, B) in SHAPES.items():
+        kw = dict(C=C, max_tu=max_tu, is_chroma=chroma, strong=strong)
         st = synth_state(C, max_tu, B, seed=7)
         _, _, _, tu, mode = st
         sizes, modes = set(), set()
@@ -146,20 +170,37 @@ def check_walk_shapes(dev):
         want_sizes = {n for n, _, _ in HT.zorder_candidates(C, max_tu)}
         check(sizes == want_sizes, f"{name}: TU sizes {sizes}")
         check(modes == set(range(35)), f"{name}: modes missing")
-        args = walk_args(st, dev)
-        kw = dict(C=C, max_tu=max_tu, is_chroma=chroma, strong=strong)
-        got = HW.walk(*args, **kw)
-        want = HW.walk_reference(*args, **kw)
-        torch.cuda.synchronize()
-        e = max_abs(got, want)
-        check(e == 0, f"{name}: kernel != walk_reference")
-        if strong:
-            weak = HW.walk_reference(*args, **dict(kw, strong=False))
-            check(not torch.equal(weak, want), "strong filter never taken")
-        err = max(err, e)
+        hard = synth_state_hard(C, max_tu, B, seed=7)
+        per_lane = active_tus(hard[3], C, max_tu)
+        check(per_lane.max() == (C // 4) ** 2 and per_lane.min() == 0
+              and int(hard[2].min()) == -32768
+              and int(hard[2].max()) == 32767,
+              f"{name}: hard state lacks a case")
+        for what, state in (("usual", st), ("hard", hard),
+                            ("hard, 1 lane", synth_state_hard(C, max_tu, 1,
+                                                              seed=8)),
+                            ("hard, 7 lanes", synth_state_hard(C, max_tu, 7,
+                                                               seed=9))):
+            args = walk_args(state, dev)
+            got = HW.walk(*args, **kw)
+            want = HW.walk_reference(*args, **kw)
+            torch.cuda.synchronize()
+            e = max_abs(got, want)
+            check(e == 0, f"{name} ({what}): kernel != walk_reference")
+            err = max(err, e)
+            if what == "usual" and strong:
+                weak = HW.walk_reference(*args, **dict(kw, strong=False))
+                check(not torch.equal(weak, want),
+                      "strong filter never taken")
+            if what == "hard":
+                empty = torch.from_numpy(per_lane == 0).to(dev)
+                check(torch.equal(got[empty], args[0][empty]),
+                      f"{name}: a lane without a TU changed F")
         say(f"phase 3 {name}: kernel == walk_reference on B={B} lanes, "
-            f"F {tuple(args[0].shape[1:])}, TU sizes {sorted(sizes)}, "
-            f"35 modes, max_abs_err {e}")
+            f"F {tuple(args[0].shape[1:])}: usual states (TU sizes "
+            f"{sorted(sizes)}, 35 modes) and hard states (up to "
+            f"{per_lane.max()} TUs a lane, {int((per_lane == 0).sum())} "
+            f"lanes without one), also B=1 and B=7, max_abs_err {err}")
     return err
 
 
@@ -268,7 +309,7 @@ def hevc_path(dev, card):
         return HW.walk(F, Z, resid, tu, mode, **kw)
 
     HTT.decode_frames_hevc_batch(*args, walk_fn=capture)
-    step_ms, bounds = {}, {}
+    step_ms, bounds, chain, every = {}, {}, {}, {}
     for key in ("luma", "chroma"):
         (wa, kw) = captured[key][steps // 2]
         got = HW.walk(*wa, **kw)
@@ -280,6 +321,18 @@ def hevc_path(dev, card):
         step_ms[key] = (event_ms(lambda: HW.walk(*wa, **kw), 50),
                         event_ms(lambda: HW.walk_reference(*wa, **kw), 3))
         bounds[key] = walk_bound(*wa, kw["C"], kw["max_tu"])
+        # the chain: the launch lasts as long as its longest lane
+        per_lane = active_tus(wa[3].cpu().numpy(), kw["C"], kw["max_tu"])
+        # keep the card busy for ~0.6 s while its clock is asked
+        for _ in range(min(int(600 / step_ms[key][0]), 20000)):
+            HW.walk(*wa, **kw)
+        mhz = gpu_sm_clock_mhz()
+        torch.cuda.synchronize()
+        chain[key] = (int(per_lane.max()), float(per_lane.mean()), mhz,
+                      step_ms[key][0] * 1e-3 * mhz * 1e6
+                      / max(int(per_lane.max()), 1))
+        every[key] = [event_ms(lambda: HW.walk(*a, **k), 10)
+                      for a, k in captured[key]]
     say(f"phase 5 [{card}]: end-to-end {BATCH / t_e2e:.2f} fps "
         f"({t_e2e * 1000:.1f} ms per batch of {BATCH}, parse on {workers} "
         f"threads + stack_plans + H2D + decode); device-only "
@@ -292,6 +345,15 @@ def hevc_path(dev, card):
             f"{captured[key][0][0][0].shape[0]}): kernel {k_ms:.4f} ms, "
             f"walk_reference {p_ms:.2f} ms, bound {bounds[key][0]:.5f} ms "
             f"({bounds[key][2]})")
+        tus_max, tus_mean, mhz, cyc = chain[key]
+        ev = every[key]
+        say(f"phase 5 [{card}]: walk chain {key}: active TUs per lane at "
+            f"the middle step max {tus_max}, mean {tus_mean:.1f}; at "
+            f"{mhz} MHz the kernel takes {cyc:.0f} cycles per active TU of "
+            f"the longest lane; over all {len(ev)} steps the kernel takes "
+            f"min {min(ev):.4f}, median {statistics.median(ev):.4f}, max "
+            f"{max(ev):.4f} ms, {sum(ev):.2f} ms in all (first "
+            f"{ev[0]:.4f}, last {ev[-1]:.4f})")
 
     mean = lambda d, i: statistics.mean(v[i] for v in d.values())
     rec = {"name": "hevc_walk", "route": "cuda",
@@ -306,6 +368,16 @@ def hevc_path(dev, card):
            "ms_chroma": step_ms["chroma"][0],
            "plain_ms_chroma": step_ms["chroma"][1],
            "bound_ms_chroma": bounds["chroma"][0]}
+    for key in ("luma", "chroma"):
+        tus_max, tus_mean, mhz, cyc = chain[key]
+        ev = every[key]
+        rec.update({f"active_tus_max_{key}": tus_max,
+                    f"active_tus_mean_{key}": tus_mean,
+                    f"sm_mhz_{key}": mhz,
+                    f"cycles_per_active_tu_{key}": cyc,
+                    f"steps_ms_{key}": {"min": min(ev),
+                                        "median": statistics.median(ev),
+                                        "max": max(ev), "sum": sum(ev)}})
     figures = {"slice": "hevc 1080p all-intra batch decode",
                "batch": BATCH, "e2e_fps": BATCH / t_e2e,
                "device_fps": BATCH / t_dev,
@@ -455,6 +527,10 @@ def h264_path(dev, card):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("hevc", "h264"),
+                    help="drive one path only (no complete kernels' record)")
+    only = ap.parse_args().only
     dev = require_cuda()
     card = gpu_name_power()
     say(card)
@@ -469,13 +545,14 @@ def main() -> int:
     say(f"phase 2: built {os.path.relpath(lib, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
 
-    walk_rec, hevc_fig = hevc_path(dev, card)
-    torch.cuda.empty_cache()
-    idct_rec, h264_fig = h264_path(dev, card)
-
-    say(json.dumps(hevc_fig))
-    say(json.dumps(h264_fig))
-    say(json.dumps({"kernels": [walk_rec, idct_rec]}))
+    recs = []
+    for name, path in (("hevc", hevc_path), ("h264", h264_path)):
+        if only in (None, name):
+            rec, fig = path(dev, card)
+            recs.append(rec)
+            say(json.dumps(fig))
+            torch.cuda.empty_cache()
+    say(json.dumps({"kernels": recs}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -133,6 +133,9 @@ def _intra_scan(resid_t, zidx_t, tu_t, mode_t, valid_t, has_left_t,
     WF = 1 + skew * C
     WZ = 1 + skew * C4
     lane_has_top = (torch.arange(B, device=dev) % (B // groups)) > 0
+    # an off-picture lane holds a copy of its row's first or last CTB; with
+    # no TU marked the walk skips it (its output is dropped either way)
+    tu_t = torch.where((valid_t == 1)[:, :, None, None], tu_t, 0)
     roll1 = lambda x: torch.roll(x, 1, dims=0)
     # carry: the last skew+1 bottom rows (newest first), the left column
     Rpx = [torch.zeros((B, C), dtype=_I32, device=dev)] * (skew + 1)

@@ -122,3 +122,65 @@ def synth_state(C: int, max_tu: int, B: int, seed: int = 0, skew: int = 2):
     mode = rng.integers(0, 35, (B, C4, C4)).astype(np.int32)
     mode[::4, 0, 0] = rng.choice([0, 2, 18, 34], len(range(0, B, 4)))
     return F, Z, resid, tu, mode
+
+
+# what lane b of synth_state_hard holds, by b % 6
+HARD_KINDS = ("all 4x4", "one largest TU", "no TU", "quadtree",
+              "quadtree, extreme residuals", "quadtree, nothing available")
+
+
+def synth_state_hard(C: int, max_tu: int, B: int, seed: int = 0,
+                     skew: int = 2):
+    """Seeded walk state in synth_state's layout that a decode seldom
+    gives. Lane b is of kind HARD_KINDS[b % 6]: every cell a 4x4 TU (the
+    longest chain); one TU of the largest size alone; no TU at all (F must
+    come back unchanged); a random TU quadtree; the same with every
+    residual at an int16 extreme or in between, so the clip is taken both
+    ways; the same with no neighbour available (the first TU predicts from
+    128). F is random everywhere, the CTB's own Z is the true z-scan
+    order, and each 4-sample patch of the borders (top row with its
+    top-right reach, left column with its below-left reach, corner) is
+    unavailable with probability 0.3, so substitution meets leading,
+    middle and trailing runs."""
+    rng = np.random.default_rng(seed)
+    C4, T = C // 4, min(C, max_tu)
+    T4 = T // 4
+    WF, WZ = 1 + skew * C, 1 + skew * C4
+    F = rng.integers(0, 256, (B, 1 + C + T, WF)).astype(np.int16)
+    bits = lambda v: sum(((v >> k) & 1) << (2 * k) for k in range(4))
+    cs = np.arange(C4)
+    zscan = bits(cs)[None, :] | (bits(cs)[:, None] << 1)
+    Z = np.full((B, 1 + C4 + T4, WZ), ZIDX_NONE, np.int32)
+    Z[:, 1:1 + C4, 1:1 + C4] = zscan
+    patch = lambda shape: np.where(rng.random(shape) < 0.3, ZIDX_NONE, -1)
+    Z[:, 0, :] = patch((B, WZ))
+    Z[:, :, 0] = patch((B, 1 + C4 + T4))
+    resid = rng.integers(-20, 21, (B, C, C)).astype(np.int16)
+    tu = np.zeros((B, C4, C4), np.int32)
+
+    def quadtree(t, x4, y4, n4):
+        if n4 == 1 or rng.random() < 0.4:
+            t[y4, x4] = (4 * n4).bit_length() - 1
+            return
+        h = n4 // 2
+        for j in range(4):
+            quadtree(t, x4 + (j & 1) * h, y4 + (j >> 1) * h, h)
+
+    for b in range(B):
+        kind = b % 6
+        if kind == 0:
+            tu[b] = 2
+        elif kind == 1:
+            tu[b, 0, 0] = T.bit_length() - 1
+        elif kind >= 3:
+            for y4 in range(0, C4, T4):
+                for x4 in range(0, C4, T4):
+                    quadtree(tu[b], x4, y4, T4)
+        if kind == 4:
+            resid[b] = rng.choice(
+                np.array([-32768, -300, 0, 300, 32767], np.int16), (C, C))
+        if kind == 5:
+            Z[b, 0, :] = ZIDX_NONE
+            Z[b, :, 0] = ZIDX_NONE
+    mode = rng.integers(0, 35, (B, C4, C4)).astype(np.int32)
+    return F, Z, resid, tu, mode
