@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths at 1080p from the committed fixtures under
+Drives the port's three paths at 1080p from the committed fixtures under
 tests/data: the HEVC all-intra batched decode (batch of 16, CTU 64;
-parse_hevc_intra_plans -> stack_plans -> decode_frames_hevc_batch) and the
+parse_hevc_intra_plans -> stack_plans -> decode_frames_hevc_batch), the
 H.264 all-intra batched decode (batch of 32; parse_h264_intra_symbols ->
-stack_symbols -> decode_frames_batch). Every kernel launch count is set to
-0 just before a path is driven and read just after. Phases, one line each;
-any failure raises and the exit code is non-zero:
+stack_symbols -> decode_frames_batch) and the HEVC inter stream decode (16
+pictures, I then P and B, CTU 64; decode_hevc: native parse, DPB, phase-
+plane MC, the scan over the inter base, filters, output order). Every
+kernel launch count is set to 0 just before a path is driven and read just
+after. Phases, one line each; any failure raises and the exit code is
+non-zero:
 
   1. the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from jmcodec_tpu_torch/csrc
@@ -36,9 +39,21 @@ any failure raises and the exit code is non-zero:
      decoded with dequant_idct_reference
   8. timing of the H.264 path as in phase 5, and the dequant_idct kernel
      against dequant_idct_reference at the path's two shapes
+  9. decode the HEVC inter fixture on the card (decode_hevc): the walk
+     kernel launched once per scan step that holds a TU and skipped on the
+     others, all 48 planes in output order equal to the committed
+     libavcodec SHA-256 digests
+ 10. timing of the inter path (median of 3): end-to-end fps (native parse
+     + device decode, picture by picture in decode order); device-only fps
+     (the plans the parse recorded, replayed through the device decode
+     with its pyramid cache), with the time at which the host had issued
+     the last launch; kernel launches per picture (one replay under
+     torch.profiler); walk launches taken and skipped; and the walk kernel
+     against walk_reference at the middle scan step of the first P picture
 
-With --only hevc or --only h264 just that path is driven (for work on one
-kernel; the run then prints no kernels' record that is complete).
+With --only hevc, --only h264 or --only hevc_inter just that path is
+driven (phase 3 with either HEVC path; for work on one kernel or path, the
+run then prints no kernels' record that is complete).
 
 Each kernel's record also carries the least time the card could take for
 its launch (bound_ms): the larger of its bytes (each input read once, each
@@ -64,8 +79,14 @@ import time
 import numpy as np
 import torch
 
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
 from jmcodec_tpu_torch.api.h264_intra import parse_h264_intra_symbols
+from jmcodec_tpu_torch.api.hevc_inter import (DeviceRecon, decode_hevc,
+                                              decode_plans)
 from jmcodec_tpu_torch.api.hevc_intra import parse_hevc_intra_plans
+from jmcodec_tpu_torch.codec.hevc.refdec import HevcRefDecoder
 from jmcodec_tpu_torch.kernels import _build
 from jmcodec_tpu_torch.kernels import hevc_tables as HT
 from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
@@ -74,12 +95,14 @@ from jmcodec_tpu_torch.kernels import idct as ID
 from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
 from jmcodec_tpu_torch.tools.fixtures import (BATCH, H264_BATCH,
-                                              H264_DIGESTS,
+                                              H264_DIGESTS, INTER_DIGESTS,
                                               fixture_batch_stream,
                                               fixture_digests,
                                               h264_fixture_batch_stream,
+                                              inter_fixture_stream,
                                               synth_idct_blocks, synth_state,
-                                              synth_state_hard)
+                                              synth_state_hard,
+                                              synth_state_inter)
 from jmcodec_tpu_torch.utils.device import (gpu_name_power, gpu_sm_clock_mhz,
                                             require_cuda)
 
@@ -94,6 +117,8 @@ INT32_OPS = 67e12 / 4
 # (C, max_tu, is_chroma, strong, lanes)
 SHAPES = {"luma": (64, 32, False, True, BATCH * 17),
           "chroma": (32, 16, True, False, 2 * BATCH * 17)}
+# lanes of one 1080p picture at CTU 64, as the inter path walks them
+INTER_LANES = {"luma": 17, "chroma": 34}
 
 
 def say(*a):
@@ -176,11 +201,16 @@ def check_walk_shapes(dev):
               and int(hard[2].min()) == -32768
               and int(hard[2].max()) == 32767,
               f"{name}: hard state lacks a case")
+        inter = synth_state_inter(C, max_tu, INTER_LANES[name], seed=7)
+        inter_empty = active_tus(inter[3], C, max_tu) == 0
+        check(inter_empty.any() and not inter_empty.all(),
+              f"{name}: inter state lacks a case")
         for what, state in (("usual", st), ("hard", hard),
                             ("hard, 1 lane", synth_state_hard(C, max_tu, 1,
                                                               seed=8)),
                             ("hard, 7 lanes", synth_state_hard(C, max_tu, 7,
-                                                               seed=9))):
+                                                               seed=9)),
+                            ("inter", inter)):
             args = walk_args(state, dev)
             got = HW.walk(*args, **kw)
             want = HW.walk_reference(*args, **kw)
@@ -192,15 +222,18 @@ def check_walk_shapes(dev):
                 weak = HW.walk_reference(*args, **dict(kw, strong=False))
                 check(not torch.equal(weak, want),
                       "strong filter never taken")
-            if what == "hard":
-                empty = torch.from_numpy(per_lane == 0).to(dev)
+            if what in ("hard", "inter"):
+                empty = per_lane == 0 if what == "hard" else inter_empty
+                empty = torch.from_numpy(empty).to(dev)
                 check(torch.equal(got[empty], args[0][empty]),
-                      f"{name}: a lane without a TU changed F")
+                      f"{name} ({what}): a lane without a TU changed F")
         say(f"phase 3 {name}: kernel == walk_reference on B={B} lanes, "
             f"F {tuple(args[0].shape[1:])}: usual states (TU sizes "
             f"{sorted(sizes)}, 35 modes) and hard states (up to "
             f"{per_lane.max()} TUs a lane, {int((per_lane == 0).sum())} "
-            f"lanes without one), also B=1 and B=7, max_abs_err {err}")
+            f"lanes without one), also B=1 and B=7; inter-seeded states on "
+            f"B={INTER_LANES[name]} lanes ({int(inter_empty.sum())} without "
+            f"a TU), max_abs_err {err}")
     return err
 
 
@@ -251,10 +284,9 @@ def reset_counts():
     ID.LAUNCHES = 0
 
 
-def hevc_path(dev, card):
-    """Phases 3-5; returns the hevc_walk record and the path's figures."""
-    err = check_walk_shapes(dev)
-
+def hevc_path(dev, card, err):
+    """Phases 4-5 (err: phase 3's); returns the hevc_walk record and the
+    path's figures."""
     # ---- phase 4: the path on the card ----
     digests = fixture_digests()
     stream = fixture_batch_stream()
@@ -359,7 +391,8 @@ def hevc_path(dev, card):
     rec = {"name": "hevc_walk", "route": "cuda",
            "source": "jmcodec_tpu_torch/csrc/hevc_walk.cu",
            "replaces": "jmcodec_tpu/kernels/hevc_walk_pallas.py:560",
-           "launches": launches, "max_abs_err": err,
+           "launches": launches, "launches_hevc_intra": launches,
+           "max_abs_err": err,
            "ms": mean(step_ms, 0), "plain_ms": mean(step_ms, 1),
            "bound_ms": mean(bounds, 0),
            "bound_by": max(bounds.values())[1], "library_ms": None,
@@ -526,11 +559,146 @@ def h264_path(dev, card):
     return rec, figures
 
 
+def kernel_launches(fn):
+    """CUDA kernel events of one fn() run under torch.profiler."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def hevc_inter_path(dev, card, walk_rec, err):
+    """Phases 9-10 (err: phase 3's). Returns the hevc_walk record (walk_rec
+    with the inter path's launches and step times added, or a record of
+    this path alone when the intra path was not driven) and the path's
+    figures."""
+    digests = fixture_digests(INTER_DIGESTS)
+    stream = inter_fixture_stream()
+
+    # ---- phase 9: the path on the card ----
+    plans = []
+    recon = DeviceRecon(dev)
+
+    def recording(plan, ref_pixels):
+        plans.append(plan)
+        return recon(plan, ref_pixels)
+
+    reset_counts()
+    frames = HevcRefDecoder(recording).decode(stream)
+    torch.cuda.synchronize()
+    launches = HW.LAUNCHES
+    check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC inter path")
+    check(len(frames) == len(plans) == len(digests),
+          f"{len(frames)} frames, {len(plans)} pictures")
+    check_digests([torch.stack([f[k] for f in frames]) for k in range(3)],
+                  digests, "hevc inter")
+    steps = [HTT.walk_steps(p) for p in plans]
+    n_steps = sum(len(y) + len(c) for y, c in steps)
+    taken = sum(sum(y) + sum(c) for y, c in steps)
+    check(launches == taken, f"{launches} walk launches, {taken} steps "
+                             f"with a TU")
+    p0 = plans[0]
+    say(f"phase 9: {len(plans)} pictures {p0.width}x{p0.height} CTU "
+        f"{1 << p0.log2_ctb} (decode order POC "
+        f"{[p.poc for p in plans]}): hevc_walk launched {launches} times "
+        f"over {n_steps} scan steps, {n_steps - launches} steps without a "
+        f"TU skipped; all {3 * len(frames)} planes in output order match "
+        f"the libavcodec SHA-256 digests")
+
+    # ---- phase 10: timing ----
+    def e2e():
+        decode_hevc(stream, dev)
+
+    def device_only():
+        decode_plans(plans, dev)
+
+    e2e()
+    t_e2e, _ = sync_time(e2e, REPS)
+    device_only()
+    t_dev, t_issued = sync_time(device_only, REPS)
+    n_kernels = kernel_launches(device_only)
+    n = len(plans)
+
+    # the walk at the middle scan step of the first P picture, on the
+    # states the decode gives it
+    check(plans[1].ref_pocs == [p0.poc], "picture 1 is not a P picture")
+    i_planes = decode_plans(plans[:1], dev)[0]
+    captured = {}
+
+    def capture(F, Z, resid, tu, mode, **kw):
+        key = "chroma" if kw["is_chroma"] else "luma"
+        captured.setdefault(key, []).append(((F, Z, resid, tu, mode), kw))
+        return HW.walk(F, Z, resid, tu, mode, **kw)
+
+    HTT.decode_plan_inter(plans[1], [HTT.prep_hevc_ref(*i_planes)], dev,
+                          walk_fn=capture)
+    step_ms, bounds, tus = {}, {}, {}
+    for key in ("luma", "chroma"):
+        wa, kw = captured[key][len(captured[key]) // 2]
+        got = HW.walk(*wa, **kw)
+        want = HW.walk_reference(*wa, **kw)
+        torch.cuda.synchronize()
+        e = max_abs(got, want)
+        err = max(err, e)
+        check(e == 0, f"inter {key} step: kernel != walk_reference")
+        step_ms[key] = (event_ms(lambda: HW.walk(*wa, **kw), 50),
+                        event_ms(lambda: HW.walk_reference(*wa, **kw), 3))
+        bounds[key] = walk_bound(*wa, kw["C"], kw["max_tu"])
+        per_lane = active_tus(wa[3].cpu().numpy(), kw["C"], kw["max_tu"])
+        tus[key] = (int(per_lane.max()), float(per_lane.mean()),
+                    len(captured[key]))
+    say(f"phase 10 [{card}]: end-to-end {n / t_e2e:.2f} fps "
+        f"({t_e2e * 1000:.1f} ms for {n} pictures: native parse + device "
+        f"decode in decode order); device-only {n / t_dev:.2f} fps "
+        f"({t_dev * 1000:.1f} ms: the recorded plans, uploaded and decoded "
+        f"with the pyramid cache); the host had issued the last launch at "
+        f"{t_issued * 1000:.1f} ms, the device finished "
+        f"{(t_dev - t_issued) * 1000:.1f} ms later; {n_kernels} kernel "
+        f"launches ({n_kernels / n:.0f} per picture), hevc_walk {launches} "
+        f"taken and {n_steps - launches} skipped")
+    for key, (k_ms, p_ms) in step_ms.items():
+        say(f"phase 10 [{card}]: walk step {key} of the first P picture "
+            f"(B={captured[key][0][0][0].shape[0]}, step {tus[key][2] // 2} "
+            f"of the {tus[key][2]} walked; active TUs per lane max "
+            f"{tus[key][0]}, mean {tus[key][1]:.1f}): kernel {k_ms:.4f} "
+            f"ms, walk_reference {p_ms:.2f} ms, bound {bounds[key][0]:.5f} "
+            f"ms ({bounds[key][2]})")
+
+    inter = {"launches_hevc_inter": launches,
+             "skipped_hevc_inter": n_steps - launches}
+    for key in ("luma", "chroma"):
+        inter.update({f"ms_inter_{key}": step_ms[key][0],
+                      f"plain_ms_inter_{key}": step_ms[key][1],
+                      f"bound_ms_inter_{key}": bounds[key][0]})
+    if walk_rec is None:
+        mean = lambda d, i: statistics.mean(v[i] for v in d.values())
+        walk_rec = {"name": "hevc_walk", "route": "cuda",
+                    "source": "jmcodec_tpu_torch/csrc/hevc_walk.cu",
+                    "replaces": "jmcodec_tpu/kernels/hevc_walk_pallas.py:560",
+                    "launches": 0, "max_abs_err": 0,
+                    "ms": mean(step_ms, 0), "plain_ms": mean(step_ms, 1),
+                    "bound_ms": mean(bounds, 0),
+                    "bound_by": max(bounds.values())[1], "library_ms": None}
+    walk_rec.update(inter)
+    walk_rec["launches"] += launches
+    walk_rec["max_abs_err"] = max(walk_rec["max_abs_err"], err)
+    figures = {"slice": "hevc 1080p inter stream decode", "pictures": n,
+               "e2e_fps": n / t_e2e, "device_fps": n / t_dev,
+               "device_only_issued_ms": t_issued * 1000,
+               "device_only_wall_ms": t_dev * 1000,
+               "kernel_launches_per_picture": n_kernels / n,
+               "walk_launches": launches,
+               "walk_skipped": n_steps - launches, "card": card}
+    return walk_rec, figures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("hevc", "h264"),
+    ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter"),
                     help="drive one path only (no complete kernels' record)")
     only = ap.parse_args().only
+    t_start = time.perf_counter()
     dev = require_cuda()
     card = gpu_name_power()
     say(card)
@@ -545,13 +713,24 @@ def main() -> int:
     say(f"phase 2: built {os.path.relpath(lib, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
 
-    recs = []
-    for name, path in (("hevc", hevc_path), ("h264", h264_path)):
-        if only in (None, name):
-            rec, fig = path(dev, card)
-            recs.append(rec)
-            say(json.dumps(fig))
-            torch.cuda.empty_cache()
+    walk_rec, idct_rec = None, None
+    if only in (None, "hevc", "hevc_inter"):
+        walk_err = check_walk_shapes(dev)
+    if only in (None, "hevc"):
+        walk_rec, fig = hevc_path(dev, card, walk_err)
+        say(json.dumps(fig))
+        torch.cuda.empty_cache()
+    if only in (None, "h264"):
+        idct_rec, fig = h264_path(dev, card)
+        say(json.dumps(fig))
+        torch.cuda.empty_cache()
+    if only in (None, "hevc_inter"):
+        walk_rec, fig = hevc_inter_path(dev, card, walk_rec, walk_err)
+        say(json.dumps(fig))
+        torch.cuda.empty_cache()
+    recs = [r for r in (walk_rec, idct_rec) if r is not None]
+    say(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+        f"kernels' build included")
     say(json.dumps({"kernels": recs}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

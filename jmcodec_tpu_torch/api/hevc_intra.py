@@ -12,21 +12,8 @@ from .. import native
 from ..codec.hevc import nal as HN
 from ..codec.hevc.params import parse_pps, parse_sps
 from ..codec.hevc.plan import HevcFramePlan
+from ..codec.hevc.refdec import _substream_offsets
 from ..codec.hevc.slicehdr import I_SLICE, parse_slice_header
-
-
-def _substream_offsets(hdr, emu):
-    """WPP substream start offsets in RBSP bytes, from entry points which
-    count EBSP bytes from the start of slice data (spec 7.4.7.1)."""
-    if not hdr.entry_points:
-        return []
-    emu = emu or []
-    start_r = hdr.data_bitpos >> 3
-    # ebsp offset of the slice-data start: the i-th removed byte sits just
-    # before rbsp index emu[i]
-    start_e = start_r + sum(1 for p in emu if p <= start_r)
-    return [HN.ebsp_offset_to_rbsp(start_e + e_off, emu)
-            for e_off in hdr.entry_points]
 
 
 def parse_hevc_intra_plans(stream: bytes, workers: int = 1):

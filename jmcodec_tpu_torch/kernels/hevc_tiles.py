@@ -1,19 +1,25 @@
-"""HEVC all-intra batched reconstruction in torch: plan tensors in, uint8
-(Y, U, V) out. The port of jmcodec_tpu/kernels/hevc_tiles.py's intra path:
+"""HEVC reconstruction in torch: plan tensors in, uint8 (Y, U, V) out. The
+port of jmcodec_tpu/kernels/hevc_tiles.py, the all-intra batch path and the
+inter (P/B) path:
 
+  0. inter only - phase-plane motion compensation of both lists from the
+                  references' phase pyramids (prep_hevc_ref), weighted
+                  combine, + the inter residuals: the inter base
   1. residuals  - per-TU-size batched dequant + two-stage inverse DCT/DST
                   as float64 matrix products (every partial sum is an
                   integer below 2^27, so float64 is exact)
   2. intra scan - CTB-diagonal wavefront, lanes = CTB rows of every frame
                   (and of Cb and Cr for chroma), one walk() per diagonal:
                   the hand-written CUDA kernel on the card, the plain torch
-                  walk on the CPU (hevc_walk.py)
+                  walk on the CPU (hevc_walk.py). An inter picture seeds the
+                  tiles with its base, and a diagonal with no TU is skipped.
   3. deblock    - whole-plane vectorised V pass then H pass (8.7.2)
   4. SAO        - per-CTB parameters broadcast to pixels (8.7.3)
 
 Every function takes tensors on one device and keeps them there. The
-entry points that take plans (stack_plans, decode_plans_batch, decode_plan)
-put them on the card unless the caller names another device.
+entry points that take plans (stack_plans, decode_plans_batch, decode_plan,
+decode_plan_inter) put them on the card unless the caller names another
+device.
 """
 
 from __future__ import annotations
@@ -117,7 +123,8 @@ def _unskew_to_plane(tiles, cys, cxs, valid, ctb_h: int, ctb_w: int,
 
 def _intra_scan(resid_t, zidx_t, tu_t, mode_t, valid_t, has_left_t,
                 C: int, skew: int, max_tu: int, is_chroma: bool,
-                strong: bool, groups: int = 1, walk_fn=walk):
+                strong: bool, groups: int = 1, walk_fn=walk, base_t=None,
+                has_tu=None):
     """One wavefront over skewed tiles: resid_t [steps, B, C, C] int16;
     zidx/tu/mode [steps, B, C/4, C/4] int32; valid/has_left [steps, B].
     Returns recon tiles [steps, B, C, C] int32.
@@ -125,7 +132,13 @@ def _intra_scan(resid_t, zidx_t, tu_t, mode_t, valid_t, has_left_t,
     The lane axis holds `groups` stacks of CTB rows (frames, and Cb/Cr for
     chroma); the first lane of each stack has no top neighbour. Each step
     assembles the composite F (top/left borders from the carry) and Z,
-    then runs the TU walk (walk_fn) of every lane."""
+    then runs the TU walk (walk_fn) of every lane.
+
+    Inter pictures: base_t [steps, B, C, C] int16 seeds the interior of F
+    (intra TUs overwrite their areas), and has_tu [steps] bool, decided on
+    the host, marks the steps that hold a TU (None: every step). A step
+    without one is its base: a walk without a TU returns F unchanged, so
+    neither F nor Z is assembled and the walk is not launched."""
     n_steps, B = resid_t.shape[:2]
     dev = resid_t.device
     C4 = C // 4
@@ -145,24 +158,31 @@ def _intra_scan(resid_t, zidx_t, tu_t, mode_t, valid_t, has_left_t,
     out = []
     for d in range(n_steps):
         zw = zidx_t[d]
-        hl = has_left_t[d] == 1
-        F = torch.zeros((B, 1 + C + PB, WF), dtype=torch.int16, device=dev)
-        F[:, 0, 1:] = torch.cat([roll1(Rpx[skew - 1 - j])
-                                 for j in range(skew)], dim=-1)
-        F[:, 0, 0] = roll1(Rpx[skew])[:, -1]
-        F[:, 1:1 + C, 0] = Cpx
-        Z = torch.full((B, 1 + C4 + PB // 4, WZ), ZIDX_NONE, dtype=_I32,
-                       device=dev)
-        Z[:, 1:1 + C4, 1:1 + C4] = zw
-        ztop = torch.cat([roll1(Rz[skew - 1 - j]) for j in range(skew)],
-                         dim=-1)
-        Z[:, 0, 1:] = torch.where(lane_has_top[:, None], ztop, ZIDX_NONE)
-        Z[:, 1:1 + C4, 0] = torch.where(hl[:, None], Cz, ZIDX_NONE)
-        Z[:, 0, 0] = torch.where(lane_has_top & hl, roll1(Rz[skew])[:, -1],
-                                 ZIDX_NONE)
-        F = walk_fn(F, Z, resid_t[d], tu_t[d], mode_t[d], C=C,
-                    max_tu=max_tu, is_chroma=is_chroma, strong=strong)
-        Yw = F[:, 1:1 + C, 1:1 + C].to(_I32)
+        if has_tu is not None and not has_tu[d]:
+            Yw = base_t[d].to(_I32)
+        else:
+            hl = has_left_t[d] == 1
+            F = torch.zeros((B, 1 + C + PB, WF), dtype=torch.int16,
+                            device=dev)
+            if base_t is not None:
+                F[:, 1:1 + C, 1:1 + C] = base_t[d]
+            F[:, 0, 1:] = torch.cat([roll1(Rpx[skew - 1 - j])
+                                     for j in range(skew)], dim=-1)
+            F[:, 0, 0] = roll1(Rpx[skew])[:, -1]
+            F[:, 1:1 + C, 0] = Cpx
+            Z = torch.full((B, 1 + C4 + PB // 4, WZ), ZIDX_NONE, dtype=_I32,
+                           device=dev)
+            Z[:, 1:1 + C4, 1:1 + C4] = zw
+            ztop = torch.cat([roll1(Rz[skew - 1 - j])
+                              for j in range(skew)], dim=-1)
+            Z[:, 0, 1:] = torch.where(lane_has_top[:, None], ztop,
+                                      ZIDX_NONE)
+            Z[:, 1:1 + C4, 0] = torch.where(hl[:, None], Cz, ZIDX_NONE)
+            Z[:, 0, 0] = torch.where(lane_has_top & hl,
+                                     roll1(Rz[skew])[:, -1], ZIDX_NONE)
+            F = walk_fn(F, Z, resid_t[d], tu_t[d], mode_t[d], C=C,
+                        max_tu=max_tu, is_chroma=is_chroma, strong=strong)
+            Yw = F[:, 1:1 + C, 1:1 + C].to(_I32)
         vm = (valid_t[d] == 1)[:, None]
         Rpx = [torch.where(vm, Yw[:, C - 1, :], 0)] + Rpx[:-1]
         Rz = [torch.where(vm, zw[:, C4 - 1, :], ZIDX_NONE)] + Rz[:-1]
@@ -351,6 +371,13 @@ def _sao_plane(plane, typ, offs, band, eo, log2n: int, pw: int, ph: int):
 # ---------------------------------------------------------------------------
 
 
+def _chroma_qp(qp_y, off):
+    """Chroma QP per chroma cell (Table 8-10) from the luma cell QP [F, Hp/4,
+    Wp/4] and the frame's offset [F]."""
+    return _t(HT.QPC_T, qp_y.device)[(qp_y[:, ::2, ::2] + off[:, None, None])
+                                     .clamp(0, 57).long()]
+
+
 def decode_frames_hevc_batch(Hp: int, Wp: int, log2_ctb: int, strong: bool,
                              deblock_on: bool, pw: int, ph: int,
                              width: int, height: int,
@@ -359,14 +386,18 @@ def decode_frames_hevc_batch(Hp: int, Wp: int, log2_ctb: int, strong: bool,
                              cb_qp_off, cr_qp_off, beta_off, tc_off,
                              bs_ver, bs_hor,
                              sao_type, sao_offsets, sao_band, sao_eo, *,
-                             walk_fn=walk):
+                             walk_fn=walk, base=None, has_tu=None):
     """Batched all-intra HEVC decode. Every tensor carries a leading frame
     axis [F, ...] (per-frame scalars are [F]) and lies on one device, in
     the compact dtypes of stack_plans. Frames are stacked on the
     wavefront's lane axis, so the sequential depth of the scan is shared
     by the whole batch. walk_fn is the scan step's TU walk (hevc_walk.walk;
     checks pass hevc_walk.walk_reference). Returns (Y, U, V) uint8
-    [F, height, width] (and half size for chroma) on the same device."""
+    [F, height, width] (and half size for chroma) on the same device.
+
+    decode_frame_hevc_inter passes base, the inter base planes (Y, Cb, Cr)
+    [F, Hp, Wp] (half size for chroma) int32 that seed the scans, and
+    has_tu, the (luma, chroma) steps of walk_steps."""
     (coeff_y, tu_y, mode_y, zidx_y, qp_y, coeff_cb, coeff_cr, tu_c, mode_c,
      zidx_c, cb_qp_off, cr_qp_off, beta_off, tc_off, bs_ver, bs_hor,
      sao_type, sao_offsets, sao_band, sao_eo) = (
@@ -386,23 +417,25 @@ def decode_frames_hevc_batch(Hp: int, Wp: int, log2_ctb: int, strong: bool,
 
     # ---- residuals ----
     resid_y = _residual_plane(coeff_y, qp_y, tu_y, True, (2, 3, 4, 5))
-    qpc_t = _t(HT.QPC_T, dev)
-    qpc = lambda off: qpc_t[(qp_y[:, ::2, ::2] + off[:, None, None])
-                            .clamp(0, 57).long()]
-    resid_cb = _residual_plane(coeff_cb, qpc(cb_qp_off), tu_c, False,
-                               (2, 3, 4))
-    resid_cr = _residual_plane(coeff_cr, qpc(cr_qp_off), tu_c, False,
-                               (2, 3, 4))
+    resid_cb = _residual_plane(coeff_cb, _chroma_qp(qp_y, cb_qp_off), tu_c,
+                               False, (2, 3, 4))
+    resid_cr = _residual_plane(coeff_cr, _chroma_qp(qp_y, cr_qp_off), tu_c,
+                               False, (2, 3, 4))
 
     def lanes(planes, n):
         return _skew(_plane_to_ctb_tiles(planes, ctb_h, ctb_w, n), cys, cxs)
+
+    base_y, base_cb, base_cr = (None,) * 3 if base is None else base
+    has_y, has_c = (None, None) if has_tu is None else has_tu
 
     # ---- luma scan: frames stacked on the lane axis ----
     Yt = _intra_scan(i16(lanes(resid_y, C)), lanes(zidx_y, C // 4),
                      lanes(tu_y, C // 4), lanes(mode_y, C // 4),
                      rep(valid, nf), rep(has_left, nf), C, skew, 32,
                      is_chroma=False, strong=strong, groups=nf,
-                     walk_fn=walk_fn)
+                     walk_fn=walk_fn,
+                     base_t=None if base is None else i16(lanes(base_y, C)),
+                     has_tu=has_y)
     Y = _unskew_to_plane(Yt, cys, cxs, valid, ctb_h, ctb_w, C)
 
     # ---- chroma scan: [Cb of every frame, Cr of every frame] ----
@@ -413,7 +446,10 @@ def decode_frames_hevc_batch(Hp: int, Wp: int, log2_ctb: int, strong: bool,
                      cat2(lanes(tu_c, Cc // 4)), cat2(lanes(mode_c, Cc // 4)),
                      rep(valid, 2 * nf), rep(has_left, 2 * nf), Cc, skew, 16,
                      is_chroma=True, strong=False, groups=2 * nf,
-                     walk_fn=walk_fn)
+                     walk_fn=walk_fn,
+                     base_t=None if base is None else i16(torch.cat(
+                         [lanes(base_cb, Cc), lanes(base_cr, Cc)], dim=1)),
+                     has_tu=has_c)
     half = nf * ctb_h
     U = _unskew_to_plane(Ct[:, :half], cys, cxs, valid, ctb_h, ctb_w, Cc)
     V = _unskew_to_plane(Ct[:, half:], cys, cxs, valid, ctb_h, ctb_w, Cc)
@@ -499,3 +535,258 @@ def decode_plan(plan, device=None, coded: bool = False):
     h, w = (plan.ph, plan.pw) if coded else (plan.height, plan.width)
     Y, U, V = decode_frames_hevc_batch(*args[:7], w, h, *args[9:])
     return Y[0], U[0], V[0]
+
+
+# ---------------------------------------------------------------------------
+# inter pictures (P/B): phase-plane motion compensation
+# ---------------------------------------------------------------------------
+# MC is a per-4x4-cell gather from precomputed fractional-phase plane
+# pyramids of each reference (16 luma quarter-pel phases; chroma keeps the
+# 8 horizontal eighth-pel phases and applies the 4-tap vertical filter at
+# gather time). Interpolated values are held at the spec's 14-bit
+# intermediate precision so bi-prediction combines exactly (8.5.4.2.2).
+
+MC_PAD_HEVC = 64   # luma pad; plan gates |mv| <= 4*(PAD-8) quarter-pel
+
+_LUMA_F = np.array([
+    [0, 0, 0, 64, 0, 0, 0, 0],
+    [-1, 4, -10, 58, 17, -5, 1, 0],
+    [-1, 4, -11, 40, 40, -11, 4, -1],
+    [0, 1, -5, 17, 58, -10, 4, -1]], np.int32)
+_CHROMA_F = np.array([
+    [0, 64, 0, 0], [-2, 58, 10, -2], [-4, 54, 16, -2], [-6, 46, 28, -4],
+    [-4, 36, 36, -4], [-4, 28, 46, -6], [-2, 16, 54, -4],
+    [-2, 10, 58, -2]], np.int32)
+
+
+def _edge_pad(a, dim: int, before: int, after: int):
+    """a padded along dim by repeating its first and last sample."""
+    n = a.shape[dim]
+    idx = torch.arange(-before, n + after, device=a.device).clamp(0, n - 1)
+    return a.index_select(dim, idx)
+
+
+def _fir(a, taps, dim: int):
+    """Each filter of taps [P, T] (a table of this module) along dim of the
+    int32 tensor a, over its edge-padded window (T/2 - 1 samples before
+    the sample, T/2 after) -> [P, *a.shape] int32."""
+    P, T = taps.shape
+    n = a.shape[dim]
+    ap = _edge_pad(a, dim, T // 2 - 1, T // 2)
+    f = _t(taps, a.device).reshape(P, T, *([1] * a.dim()))
+    out = 0
+    for k in range(T):
+        out = out + f[:, k] * ap.narrow(dim, k, n)
+    return out
+
+
+def prep_hevc_ref(Y, U, V):
+    """Coded-size uint8 planes -> (luma_ph [16, Hp2, Wp2] int16,
+    cb_ph [8, ...], cr_ph [8, ...]) fractional-phase pyramids, padded by
+    MC_PAD_HEVC (luma) / MC_PAD_HEVC//2 (chroma), 14-bit sample scale.
+    Luma phase yf*4 + xf is the horizontal filter of phase xf, then the
+    vertical filter of phase yf, >> 6: phase 0's filter is 64 times the
+    sample, so the integer positions keep sample << 6. The sums reach
+    about 2e6 before the shift and stay within int16 after it."""
+    P = MC_PAD_HEVC
+    pad = lambda a, p: _edge_pad(_edge_pad(a.to(_I32), -2, p, p), -1, p, p)
+    y = pad(Y, P)
+    hor = _fir(y, _LUMA_F, -1)                          # [xf, Hp2, Wp2]
+    luma = (_fir(hor, _LUMA_F, -2) >> 6).reshape(16, *y.shape)
+    chroma = lambda c: _fir(pad(c, P // 2), _CHROMA_F, -1).to(torch.int16)
+    return luma.to(torch.int16), chroma(U), chroma(V)
+
+
+def _gather(src, *idx):
+    """src[idx[0], idx[1], ...] over every dim of src, the indices
+    broadcast together, with XLA's bounds: a negative index counts once
+    from the end, then each is clamped into its dim. The plan's MV gate
+    keeps every index in range; the clamp makes both packages agree on any
+    plan. One flattened int64 index."""
+    flat = 0
+    for n, i in zip(src.shape, idx):
+        flat = flat * n + torch.where(i < 0, i + n, i).clamp(0, n - 1)
+    return src.reshape(-1)[flat]
+
+
+def _cell_origins(slot, step: int, pad: int):
+    """Sample (row, column) of every cell's top-left corner in a padded
+    plane: [Hc, 1] and [1, Wc] int64."""
+    Hc, Wc = slot.shape
+    dev = slot.device
+    return (torch.arange(Hc, device=dev)[:, None] * step + pad,
+            torch.arange(Wc, device=dev)[None, :] * step + pad)
+
+
+def _mc_hevc_luma(ref_ph, mv, slot):
+    """ref_ph [R, 16, Hp2, Wp2] int16; mv [Hc, Wc, 2] / slot [Hc, Wc] per
+    4x4 cell -> [Hc, Wc, 4, 4] int32 14-bit prediction."""
+    mv, slot = mv.long(), slot.long()
+    y0, x0 = _cell_origins(slot, 4, MC_PAD_HEVC)
+    xi = x0 + (mv[..., 0] >> 2)
+    yi = y0 + (mv[..., 1] >> 2)
+    ph = (mv[..., 1] & 3) * 4 + (mv[..., 0] & 3)
+    r4 = torch.arange(4, device=slot.device)
+    rows = yi[..., None, None] + r4[:, None]
+    cols = xi[..., None, None] + r4[None, :]
+    return _gather(ref_ph, slot[..., None, None], ph[..., None, None],
+                   rows, cols).to(_I32)
+
+
+def _mc_hevc_chroma(ref_ph, mv, slot):
+    """ref_ph [R, 8, Hc2, Wc2] int16 horizontal phases; 4-tap vertical at
+    gather time -> [Hc, Wc, 2, 2] int32 14-bit (per co-located 2x2 block)."""
+    mv, slot = mv.long(), slot.long()
+    dev = slot.device
+    y0, x0 = _cell_origins(slot, 2, MC_PAD_HEVC // 2)
+    xi = x0 + (mv[..., 0] >> 3)
+    yi = y0 + (mv[..., 1] >> 3)
+    xf = mv[..., 0] & 7
+    taps = _t(_CHROMA_F, dev)[mv[..., 1] & 7]          # [Hc, Wc, 4]
+    rows = yi[..., None, None] + (torch.arange(5, device=dev) - 1)[:, None]
+    cols = xi[..., None, None] + torch.arange(2, device=dev)[None, :]
+    win = _gather(ref_ph, slot[..., None, None], xf[..., None, None],
+                  rows, cols).to(_I32)                  # [Hc, Wc, 5, 2]
+    out = sum(taps[..., k, None, None] * win[..., k:k + 2, :]
+              for k in range(4))
+    return out >> 6
+
+
+def _combine_pred(p0, p1, fl0, fl1, w0, o0, w1, o1, log2wd: int):
+    """14-bit list predictions -> 8-bit samples. ONE uniform formula for
+    default AND explicit weighted prediction (8.5.4.2.3.3): the default
+    combine equals the explicit one at identity weights (w=1, o=0,
+    denom=0, so log2wd=6), which is what the plan carries for unweighted
+    slices. w/o are per-4x4-cell planes."""
+    e = lambda a: a[..., None, None]
+    bi = e((fl0 & fl1) != 0)
+    f0 = e(fl0 != 0)
+    w0e, o0e, w1e, o1e = e(w0), e(o0), e(w1), e(o1)
+    half = 1 << (log2wd - 1)
+    bi_v = (p0 * w0e + p1 * w1e +
+            ((o0e + o1e + 1) << log2wd)) >> (log2wd + 1)
+    uni0 = ((p0 * w0e + half) >> log2wd) + o0e
+    uni1 = ((p1 * w1e + half) >> log2wd) + o1e
+    out = torch.where(bi, bi_v, torch.where(f0, uni0, uni1))
+    return out.clamp(0, 255)
+
+
+def _cells_to_plane_j(cells):
+    gh, gw, n, _ = cells.shape
+    return cells.permute(0, 2, 1, 3).reshape(gh * n, gw * n)
+
+
+def walk_steps(plan):
+    """(luma, chroma) lists of bool over the scan steps: does a lane of
+    the step hold a TU of the plan? Read from its numpy TU maps on the
+    host, so the scan skips a step without a TU with no device-to-host
+    copy."""
+    C = 1 << plan.log2_ctb
+    ctb_h, ctb_w = plan.Hp // C, plan.Wp // C
+    cys, cxs, valid, _ = HT.skew_geometry(ctb_h, ctb_w, HT.skew_for(C))
+
+    def steps(tu, n4):
+        has = (tu > 0).reshape(ctb_h, n4, ctb_w, n4).any(axis=(1, 3))
+        return (has[cys, cxs] & (valid == 1)).any(axis=1).tolist()
+
+    return steps(plan.tu_log2_y, C // 4), steps(plan.tu_log2_c, C // 8)
+
+
+def decode_frame_hevc_inter(Hp: int, Wp: int, log2_ctb: int, strong: bool,
+                            deblock_on: bool, pw: int, ph: int,
+                            width: int, height: int,
+                            coeff_y, tu_y, mode_y, zidx_y, qp_y,
+                            coeff_cb, coeff_cr, tu_c, mode_c, zidx_c,
+                            cb_qp_off, cr_qp_off, beta_off, tc_off,
+                            bs_ver, bs_hor,
+                            sao_type, sao_offsets, sao_band, sao_eo,
+                            inter4, mv, ref_slot, pred_fl,
+                            tu_inter_y, tu_inter_c,
+                            wp_w, luma_log2wd: int, chroma_log2wd: int,
+                            refs_y, refs_cb, refs_cr, *, has_tu=None,
+                            walk_fn=walk):
+    """Inter (P/B) HEVC decode of one picture: phase-plane MC + inter
+    residuals seed the intra wavefront; deblock bS comes precomputed from
+    the host (full 8.7.2.4 derivation incl. motion comparisons).
+
+    The arguments up to sao_eo are decode_frames_hevc_batch's for a batch
+    of one (stack_plans([plan])); then the plan's inter tensors, without a
+    frame axis, its weighted-prediction denominators, and the references'
+    phase pyramids stacked in slot order (refs_y [R, 16, ...], refs_cb and
+    refs_cr [R, 8, ...], from prep_hevc_ref). has_tu: walk_steps(plan), or
+    None to walk every step. Returns (Y, U, V) uint8 [height, width] (half
+    size for chroma) on the tensors' device."""
+    (coeff_y, qp_y, coeff_cb, coeff_cr, cb_qp_off, cr_qp_off, inter4, mv,
+     ref_slot, pred_fl, tu_inter_y, tu_inter_c, wp_w) = (
+        a.to(_I32) for a in (
+            coeff_y, qp_y, coeff_cb, coeff_cr, cb_qp_off, cr_qp_off, inter4,
+            mv, ref_slot, pred_fl, tu_inter_y, tu_inter_c, wp_w))
+
+    # ---- motion compensation (whole frame, both lists) ----
+    def predict(mc, refs, c, log2wd):
+        p0 = mc(refs, mv[0], ref_slot[0])
+        p1 = mc(refs, mv[1], ref_slot[1])
+        return _cells_to_plane_j(_combine_pred(
+            p0, p1, pred_fl[0], pred_fl[1], wp_w[0, ..., 2 * c],
+            wp_w[0, ..., 2 * c + 1], wp_w[1, ..., 2 * c],
+            wp_w[1, ..., 2 * c + 1], log2wd + 6))
+
+    pred_y = predict(_mc_hevc_luma, refs_y, 0, luma_log2wd)
+    pred_cb = predict(_mc_hevc_chroma, refs_cb, 1, chroma_log2wd)
+    pred_cr = predict(_mc_hevc_chroma, refs_cr, 2, chroma_log2wd)
+
+    # ---- inter residuals (the DCT at every size, also 4x4 luma) ----
+    resid_y = _residual_plane(coeff_y, qp_y, tu_inter_y[None], False,
+                              (2, 3, 4, 5))
+    # 4:2:0 chroma TUs are at most 16 (half the 32 luma max, 7.4.9.8)
+    resid_cb = _residual_plane(coeff_cb, _chroma_qp(qp_y, cb_qp_off),
+                               tu_inter_c[None], False, (2, 3, 4))
+    resid_cr = _residual_plane(coeff_cr, _chroma_qp(qp_y, cr_qp_off),
+                               tu_inter_c[None], False, (2, 3, 4))
+
+    # ---- inter base = clip(MC + residual), masked to inter cells ----
+    up4 = lambda m: m.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    px_inter = up4(inter4) != 0
+    cx_inter = up4(inter4[::2, ::2])[:Hp // 2, :Wp // 2] != 0
+    base = (torch.where(px_inter, (pred_y + resid_y).clamp(0, 255), 0),
+            torch.where(cx_inter, (pred_cb + resid_cb).clamp(0, 255), 0),
+            torch.where(cx_inter, (pred_cr + resid_cr).clamp(0, 255), 0))
+
+    # inter cells carry their CU's z-scan index (plan.record_inter_cu_done)
+    # so the zidx availability compare matches 6.4.1 exactly
+    Y, U, V = decode_frames_hevc_batch(
+        Hp, Wp, log2_ctb, strong, deblock_on, pw, ph, width, height,
+        coeff_y, tu_y, mode_y, zidx_y, qp_y, coeff_cb, coeff_cr, tu_c,
+        mode_c, zidx_c, cb_qp_off, cr_qp_off, beta_off, tc_off, bs_ver,
+        bs_hor, sao_type, sao_offsets, sao_band, sao_eo, walk_fn=walk_fn,
+        base=base, has_tu=has_tu)
+    return Y[0], U[0], V[0]
+
+
+def decode_plan_inter(plan, refs, device=None, coded: bool = False, *,
+                      walk_fn=walk):
+    """Inter HevcFramePlan + its references' phase pyramids, [(luma_ph,
+    cb_ph, cr_ph), ...] of prep_hevc_ref in plan.ref_pocs order, on
+    `device` (None: the card) -> (Y, U, V) uint8 there (coded size when
+    coded=True). A picture without references (an I picture, zeroed
+    motion) passes [] and is predicted from a zero reference. walk_fn as
+    in decode_frames_hevc_batch."""
+    _check_plans([plan])
+    args = stack_plans([plan], device)
+    dev = args[9].device
+    up = lambda a, dt: torch.from_numpy(np.asarray(a).astype(dt)).to(dev)
+    inter = (up(plan.inter4, np.int8), up(plan.mv, np.int16),
+             up(plan.ref_slot, np.int8), up(plan.pred_fl, np.int8),
+             up(plan.tu_log2_inter_y, np.int8),
+             up(plan.tu_log2_inter_c, np.int8), up(plan.wp_w, np.int16))
+    if not refs:
+        ph2, pw2 = plan.ph + 2 * MC_PAD_HEVC, plan.pw + 2 * MC_PAD_HEVC
+        z = lambda *s: torch.zeros(s, dtype=torch.int16, device=dev)
+        refs = [(z(16, ph2, pw2), z(8, ph2 // 2, pw2 // 2),
+                 z(8, ph2 // 2, pw2 // 2))]
+    stacks = [torch.stack([r[i] for r in refs]) for i in range(3)]
+    h, w = (plan.ph, plan.pw) if coded else (plan.height, plan.width)
+    return decode_frame_hevc_inter(
+        *args[:7], w, h, *args[9:], *inter, int(plan.luma_log2wd),
+        int(plan.chroma_log2wd), *stacks, has_tu=walk_steps(plan),
+        walk_fn=walk_fn)

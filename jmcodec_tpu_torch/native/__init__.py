@@ -1,5 +1,6 @@
 """Native (C++) host parsers: H.264 CAVLC/CABAC slice data into
-FrameSymbols, HEVC CABAC slice data into HevcFramePlan tensors.
+FrameSymbols, HEVC CABAC slice data (I, P and B slices, the P/B parse with
+its merge/AMVP/TMVP motion derivation) into HevcFramePlan tensors.
 
 The sources under src/ (the table headers included, as committed files)
 are compiled with g++ into one shared library under the package's build/
@@ -64,6 +65,8 @@ def get_lib():
             lib.jmx_parse_cabac_slice.restype = _I
             lib.jmx_hevc_parse_i_slice.argtypes = head + [_P] * 19
             lib.jmx_hevc_parse_i_slice.restype = _I
+            lib.jmx_hevc_parse_pb_slice.argtypes = head + [_P] * 51
+            lib.jmx_hevc_parse_pb_slice.restype = _I
             _lib = lib
         return _lib
 
@@ -173,15 +176,7 @@ def hevc_fill_plan(plan, hdr, sps, pps, rbsp: bytes,
     if pps.cu_qp_delta_enabled:
         raise HevcNativeUnsupported("cu_qp_delta")
     buf = np.frombuffer(rbsp, np.uint8)
-    iparams = np.array([
-        sps.pic_width, sps.pic_height, sps.log2_ctb, sps.log2_min_cb,
-        sps.log2_min_tb, sps.log2_max_tb,
-        sps.max_transform_hierarchy_depth_intra,
-        hdr.qp, hdr.init_type, hdr.sao_luma, hdr.sao_chroma,
-        pps.entropy_coding_sync_enabled, pps.sign_data_hiding,
-        pps.transform_skip_enabled, pps.transquant_bypass_enabled,
-        sps.pcm_enabled, hdr.segment_address, len(substream_rbsp),
-    ], np.int32)
+    iparams = _hevc_iparams(hdr, sps, pps, len(substream_rbsp))
     subs = np.asarray(substream_rbsp or [0], np.int64)
     cw = (sps.pic_width + 3) // 4
     ch = (sps.pic_height + 3) // 4
@@ -199,3 +194,108 @@ def hevc_fill_plan(plan, hdr, sps, pps, rbsp: bytes,
         raise HevcNativeUnsupported(f"native HEVC parser: code {n}")
     if n <= 0:
         raise ValueError(f"native HEVC slice parse error {n}")
+
+
+def _hevc_iparams(hdr, sps, pps, n_substreams: int) -> np.ndarray:
+    return np.array([
+        sps.pic_width, sps.pic_height, sps.log2_ctb, sps.log2_min_cb,
+        sps.log2_min_tb, sps.log2_max_tb,
+        sps.max_transform_hierarchy_depth_intra,
+        hdr.qp, hdr.init_type, hdr.sao_luma, hdr.sao_chroma,
+        pps.entropy_coding_sync_enabled, pps.sign_data_hiding,
+        pps.transform_skip_enabled, pps.transquant_bypass_enabled,
+        sps.pcm_enabled, hdr.segment_address, n_substreams,
+    ], np.int32)
+
+
+def hevc_fill_plan_inter(plan, hdr, sps, pps, rbsp: bytes, substream_rbsp,
+                         ictx) -> dict:
+    """Fill an inter (P/B) HevcFramePlan natively (plan.enable_inter() done).
+    ictx: the slice's motion context, a dict with slice_type, num_ref,
+    max_merge, tmvp_on, col_from_l0, col_ref_idx, mvd_l1_zero, no_backward,
+    cur_poc, has_col, col_poc, col (the collocated picture's pred, mv,
+    ref_poc and intra cell grids, or None) and refs (per list, (POC, slot)
+    of each entry). Returns the parse-state cell grids (pred, mv, refidx,
+    ref_poc, mot_done, intra4, skip4, cbf4 and the TU/PU edge masks
+    tu_ev/tu_eh/pu_ev/pu_eh) that feed the bS derivation and the DPB.
+
+    Weighted prediction needs nothing here: its table is in the slice
+    header and the plan resolves it per cell (fill_wp_cells). Raises
+    HevcNativeUnsupported outside the parser's scope (PCM, cu_qp_delta,
+    ...), ValueError on a corrupt stream. Return code -40 (motion beyond
+    the device MC pad) sets plan.supported = False; the state returned is
+    complete all the same."""
+    lib = get_lib()
+    if sps.pcm_enabled:
+        raise HevcNativeUnsupported("PCM")
+    if pps.cu_qp_delta_enabled:
+        raise HevcNativeUnsupported("cu_qp_delta")
+    buf = np.frombuffer(rbsp, np.uint8)
+    iparams = _hevc_iparams(hdr, sps, pps, len(substream_rbsp))
+    ip2 = np.array([
+        ictx["slice_type"], ictx["num_ref"][0], ictx["num_ref"][1],
+        ictx["max_merge"], ictx["tmvp_on"], ictx["col_from_l0"],
+        ictx["col_ref_idx"], ictx["mvd_l1_zero"], ictx["no_backward"],
+        ictx["cur_poc"], sps.max_transform_hierarchy_depth_inter,
+        sps.amp_enabled, ictx["has_col"], ictx["col_poc"],
+    ], np.int32)
+    ref_poc = np.zeros((2, 16), np.int32)
+    ref_slot = np.zeros((2, 16), np.int32)
+    for lx in (0, 1):
+        for k, (pc, sl) in enumerate(ictx["refs"][lx][:16]):
+            ref_poc[lx, k] = pc
+            ref_slot[lx, k] = sl
+    subs = np.asarray(substream_rbsp or [0], np.int64)
+    cw = (sps.pic_width + 3) // 4
+    ch = (sps.pic_height + 3) // 4
+    cell = (ch, cw)
+    z8 = lambda *s: np.zeros(s, np.uint8)
+    z32 = lambda *s: np.zeros(s, np.int32)
+    st = {
+        "pred": z8(2, *cell), "mv": z32(2, *cell, 2),
+        "refidx": np.full((2,) + cell, -1, np.int32),
+        "ref_poc": z32(2, *cell), "mot_done": z8(*cell),
+        "intra4": z8(*cell), "skip4": z8(*cell), "cbf4": z8(*cell),
+        "tu_ev": z8(*cell), "tu_eh": z8(*cell),
+        "pu_ev": z8(*cell), "pu_eh": z8(*cell),
+    }
+    col = ictx.get("col")
+    if col is None:
+        colp = (z8(*cell), z8(*cell), z8(*cell), z32(*cell, 2),
+                z32(*cell, 2), z32(*cell), z32(*cell))
+    else:
+        colp = tuple(np.ascontiguousarray(a) for a in (
+            col["pred"][0], col["pred"][1], col["intra"], col["mv"][0],
+            col["mv"][1], col["ref_poc"][0], col["ref_poc"][1]))
+    scratch = np.zeros(5 * cw * ch, np.uint8)
+    n = lib.jmx_hevc_parse_pb_slice(
+        _ptr(buf), len(rbsp), hdr.data_bitpos, _ptr(iparams), _ptr(subs),
+        _ptr(plan.coeff_y), _ptr(plan.tu_log2_y), _ptr(plan.mode_y),
+        _ptr(plan.zidx_y), _ptr(plan.qp_y),
+        _ptr(plan.coeff_cb), _ptr(plan.coeff_cr),
+        _ptr(plan.tu_log2_c), _ptr(plan.mode_c), _ptr(plan.zidx_c),
+        _ptr(plan.bs_ver), _ptr(plan.bs_hor),
+        _ptr(plan.sao_type), _ptr(plan.sao_offsets), _ptr(plan.sao_band),
+        _ptr(plan.sao_eo), _ptr(scratch),
+        _ptr(ip2), _ptr(ref_poc), _ptr(ref_slot),
+        *[_ptr(a) for a in colp],
+        _ptr(st["pred"][0]), _ptr(st["pred"][1]),
+        _ptr(st["mv"][0]), _ptr(st["mv"][1]),
+        _ptr(st["refidx"][0]), _ptr(st["refidx"][1]),
+        _ptr(st["ref_poc"][0]), _ptr(st["ref_poc"][1]),
+        _ptr(st["mot_done"]), _ptr(st["intra4"]), _ptr(st["skip4"]),
+        _ptr(st["cbf4"]),
+        _ptr(st["tu_ev"]), _ptr(st["tu_eh"]),
+        _ptr(st["pu_ev"]), _ptr(st["pu_eh"]),
+        _ptr(plan.inter4), _ptr(plan.mv), _ptr(plan.ref_slot),
+        _ptr(plan.pred_fl), _ptr(plan.tu_log2_inter_y),
+        _ptr(plan.tu_log2_inter_c))
+    if n == -40:
+        plan.supported = False
+        plan.reason = "MV beyond device MC pad"
+        return st
+    if n in (-2, -3, -4, -7):
+        raise HevcNativeUnsupported(f"native HEVC parser: code {n}")
+    if n <= 0:
+        raise ValueError(f"native HEVC P/B slice parse error {n}")
+    return st

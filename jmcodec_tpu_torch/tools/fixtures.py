@@ -1,7 +1,7 @@
 """Inputs for checks and timings of the port: the committed 1080p HEVC and
-H.264 all-intra fixtures at the smoke's batches, seeded synthetic inputs
-for holding each kernel against its plain version, and copies of reference
-objects into the port's own types."""
+H.264 all-intra fixtures at the smoke's batches, the 1080p HEVC inter
+fixture, seeded synthetic inputs for holding each kernel against its plain
+version, and copies of reference objects into the port's own types."""
 
 from __future__ import annotations
 
@@ -20,6 +20,9 @@ DIGESTS = os.path.join(ROOT, "tests", "data", "hevc_1080p_intra.sha256.json")
 H264_FIXTURE = os.path.join(ROOT, "tests", "data", "h264_1080p_intra.h264")
 H264_DIGESTS = os.path.join(ROOT, "tests", "data",
                             "h264_1080p_intra.sha256.json")
+INTER_FIXTURE = os.path.join(ROOT, "tests", "data", "hevc_1080p_inter.h265")
+INTER_DIGESTS = os.path.join(ROOT, "tests", "data",
+                             "hevc_1080p_inter.sha256.json")
 # frames per decode batch, as bench.py's 1080p figures decode them
 BATCH = 16
 H264_BATCH = 32
@@ -46,6 +49,36 @@ def h264_fixture_batch_stream() -> bytes:
     """The H.264 fixture repeated to H264_BATCH pictures (all are IDR; the
     repeated parameter sets are the same ones)."""
     return _repeated(H264_FIXTURE, H264_DIGESTS, H264_BATCH)
+
+
+def inter_fixture_stream() -> bytes:
+    """The 1080p HEVC inter fixture: 16 pictures in one GOP, I then P and B
+    (x265, CTU 64, WPP, no cu_qp_delta, num_reorder_pics 2, weighted
+    prediction in the P slices, every |MV| within the plan's 56 px gate).
+    Its libavcodec digests are in INTER_DIGESTS. Made with
+    tests/util_oracle.py (make_frame, oracle_encode, oracle_decode):
+
+        BY, BU, BV = make_frame(1984, 1144, seed=0)
+        for i in range(16):                 # a pan by (3i, 2i) px
+            Y = BY[2i:2i+1080, 3i:3i+1920]  (U, V: the same at half size)
+            Y, U, V += default_rng(100 + i).integers(-6, 7, shape), drawn
+                       in that order, one call per plane
+            EY, EU, EV = make_frame(256, 256, seed=i, kind="edges")
+            flip = np.kron(default_rng(1000 + i).integers(0, 2, (32, 32)),
+                           np.ones((8, 8)))
+            EY = where(flip == 1, 256 - EY, EY)   # new edges every frame
+            by = (197 i) % 824 // 8 * 8; bx = (421 i) % 1664 // 8 * 8
+            Y[by:by+256, bx:bx+256] = EY      (U, V: EU, EV at half)
+            clip to 0..255, uint8
+        oracle_encode(frames, 1920, 1080, qp=30, codec="libx265", gop=16,
+                      extra="bframes=3:merange=16")
+
+    The block of new content forces intra CUs into the P and B pictures,
+    so the TU walk runs on the inter path. merange=16 keeps the motion
+    within the gate (x265's default search, and merange=48, left a few
+    cells of two pictures beyond it)."""
+    with open(INTER_FIXTURE, "rb") as f:
+        return f.read()
 
 
 def synth_idct_blocks(N: int, seed: int = 0):
@@ -182,5 +215,51 @@ def synth_state_hard(C: int, max_tu: int, B: int, seed: int = 0,
         if kind == 5:
             Z[b, 0, :] = ZIDX_NONE
             Z[b, :, 0] = ZIDX_NONE
+    mode = rng.integers(0, 35, (B, C4, C4)).astype(np.int32)
+    return F, Z, resid, tu, mode
+
+
+def synth_state_inter(C: int, max_tu: int, B: int, seed: int = 0,
+                      skew: int = 2):
+    """Seeded walk state of an inter picture's scan step, in synth_state's
+    layout. F is random everywhere: its interior stands for the inter
+    base, which must pass through where no intra TU writes. Each lane is a
+    random TU quadtree whose leaves are intra TUs or, with probability 1/2,
+    inter cells (TU 0); Z holds an inter picture's decode-order counters:
+    every leaf, intra or inter, takes the next counter in z-scan order with
+    a random gap (an inter CU is numbered after its prediction,
+    plan.record_inter_cu_done), so the inter cells' counters lie above and
+    below the intra TUs'. Every fourth lane is all inter, with no TU. Each
+    4-sample patch of the borders is unavailable with probability 0.3."""
+    rng = np.random.default_rng(seed)
+    C4, T = C // 4, min(C, max_tu)
+    T4 = T // 4
+    WF, WZ = 1 + skew * C, 1 + skew * C4
+    F = rng.integers(0, 256, (B, 1 + C + T, WF)).astype(np.int16)
+    Z = np.full((B, 1 + C4 + T4, WZ), ZIDX_NONE, np.int32)
+    patch = lambda shape: np.where(rng.random(shape) < 0.3, ZIDX_NONE, -1)
+    Z[:, 0, :] = patch((B, WZ))
+    Z[:, :, 0] = patch((B, 1 + C4 + T4))
+    resid = rng.integers(-20, 21, (B, C, C)).astype(np.int16)
+    tu = np.zeros((B, C4, C4), np.int32)
+
+    def leaves(x4, y4, n4, out):
+        if n4 == 1 or rng.random() < 0.4:
+            out.append((x4, y4, n4))
+            return out
+        h = n4 // 2
+        for j in range(4):
+            leaves(x4 + (j & 1) * h, y4 + (j >> 1) * h, h, out)
+        return out
+
+    for b in range(B):
+        ctr = 0
+        for y0 in range(0, C4, T4):
+            for x0 in range(0, C4, T4):
+                for x4, y4, n4 in leaves(x0, y0, T4, []):
+                    ctr += int(rng.integers(1, 4))
+                    Z[b, 1 + y4:1 + y4 + n4, 1 + x4:1 + x4 + n4] = ctr
+                    if b % 4 != 3 and rng.random() < 0.5:
+                        tu[b, y4, x4] = (4 * n4).bit_length() - 1
     mode = rng.integers(0, 35, (B, C4, C4)).astype(np.int32)
     return F, Z, resid, tu, mode

@@ -40,8 +40,8 @@ def profile_decode(decode, title: str, trace=None, stages=()):
     """Run decode() once under torch.profiler (after a warm-up run) and
     print the card, the device's busy time, the launches and the top
     kernels. stages: names of record_function ranges that decode() opens
-    and closes with a synchronise; each gets its own line with its host
-    wall time, launches and device busy time."""
+    and closes with a synchronise; each name gets its own line with the
+    host wall time, launches and device busy time of all its ranges."""
     decode()                                        # warm-up: builds, tables
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -62,13 +62,14 @@ def profile_decode(decode, title: str, trace=None, stages=()):
     print(f"{title}: device busy {busy_us / 1e3:.2f} ms over {len(kernels)} "
           f"kernel launches (profiled decode)")
     for name in stages:
-        for r in (e for e in events if e.name == name
-                  and e.device_type == DeviceType.CPU):
-            s, t = span(r)
-            inside = [e for e in kernels if s <= e.time_range.start < t]
-            print(f"  stage {name}: host wall {(t - s) / 1e3:.2f} ms "
-                  f"(profiled), {len(inside)} launches, device busy "
-                  f"{_union_us(span(e) for e in inside) / 1e3:.2f} ms")
+        ranges = [span(e) for e in events if e.name == name
+                  and e.device_type == DeviceType.CPU]
+        inside = [e for e in kernels
+                  if any(s <= e.time_range.start < t for s, t in ranges)]
+        print(f"  stage {name}: host wall "
+              f"{sum(t - s for s, t in ranges) / 1e3:.2f} ms (profiled, "
+              f"{len(ranges)} calls), {len(inside)} launches, device busy "
+              f"{_union_us(span(e) for e in inside) / 1e3:.2f} ms")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for name, (us, n) in ranked[:15]:
         print(f"  {us / 1e3:9.2f} ms {n:6d}x  {name[:100]}")

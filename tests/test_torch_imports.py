@@ -42,7 +42,8 @@ def test_port_has_its_host_modules():
                  "codec/h264/fastdec.py", "codec/hevc/nal.py",
                  "codec/hevc/params.py", "codec/hevc/slicehdr.py",
                  "codec/hevc/plan.py", "codec/hevc/transform.py",
-                 "codec/hevc/intra.py", "native/__init__.py"):
+                 "codec/hevc/intra.py", "codec/hevc/inter.py",
+                 "codec/hevc/refdec.py", "native/__init__.py"):
         assert os.path.join("jmcodec_tpu_torch", want) in have, want
 
 
