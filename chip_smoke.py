@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths at 1080p from the committed fixtures under
+Drives the port's four paths at 1080p from the committed fixtures under
 tests/data: the HEVC all-intra batched decode (batch of 16, CTU 64;
 parse_hevc_intra_plans -> stack_plans -> decode_frames_hevc_batch), the
 H.264 all-intra batched decode (batch of 32; parse_h264_intra_symbols ->
-stack_symbols -> decode_frames_batch) and the HEVC inter stream decode (16
+stack_symbols -> decode_frames_batch), the HEVC inter stream decode (16
 pictures, I then P and B, CTU 64; decode_hevc: native parse, DPB, phase-
-plane MC, the scan over the inter base, filters, output order). Every
-kernel launch count is set to 0 just before a path is driven and read just
-after. Phases, one line each; any failure raises and the exit code is
+plane MC, the scan over the inter base, filters, output order) and the
+H.264 P stream decode (an IDR and four P pictures; decode_h264: native
+parse, device DPB, quarter-pel MC with explicit weights, the intra scan
+over the MC tiles, the per-edge-bS deblock scan). Every kernel launch
+count is set to 0 just before a path is driven and read just after.
+Phases, one line each; any failure raises and the exit code is
 non-zero:
 
   1. the card's name and power limit (nvidia-smi)
@@ -50,10 +53,22 @@ non-zero:
      the last launch; kernel launches per picture (one replay under
      torch.profiler); walk launches taken and skipped; and the walk kernel
      against walk_reference at the middle scan step of the first P picture
+ 11. decode the H.264 P fixture on the card (decode_h264): the
+     dequant_idct kernel launched twice per picture, all 15 planes equal
+     to the committed libavcodec SHA-256 digests; per picture the intra
+     scan's diagonals walked and skipped
+ 12. timing of the H.264 P path (median of 3; phase 11's decode is the
+     warm-up): end-to-end fps (native parse + device decode, picture by
+     picture); device-only fps (the parsed symbols replayed through
+     decode_symbols), with the time at which the host had issued the last
+     launch; the kernel launches of the first P picture (one decode under
+     torch.profiler); and the dequant_idct kernel against
+     dequant_idct_reference at the P picture's two shapes
 
-With --only hevc, --only h264 or --only hevc_inter just that path is
-driven (phase 3 with either HEVC path; for work on one kernel or path, the
-run then prints no kernels' record that is complete).
+With --only hevc, --only h264, --only hevc_inter or --only h264_inter just
+that path is driven (phase 3 with either HEVC path, phase 6 with either
+H.264 path; for work on one kernel or path, the run then prints no
+kernels' record that is complete).
 
 Each kernel's record also carries the least time the card could take for
 its launch (bound_ms): the larger of its bytes (each input read once, each
@@ -82,6 +97,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from jmcodec_tpu_torch.api.h264_inter import (DeviceDPB, decode_h264,
+                                              decode_symbols, parse_h264)
 from jmcodec_tpu_torch.api.h264_intra import parse_h264_intra_symbols
 from jmcodec_tpu_torch.api.hevc_inter import (DeviceRecon, decode_hevc,
                                               decode_plans)
@@ -95,14 +112,18 @@ from jmcodec_tpu_torch.kernels import idct as ID
 from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
 from jmcodec_tpu_torch.tools.fixtures import (BATCH, H264_BATCH,
-                                              H264_DIGESTS, INTER_DIGESTS,
+                                              H264_DIGESTS,
+                                              H264_INTER_DIGESTS,
+                                              INTER_DIGESTS,
                                               fixture_batch_stream,
                                               fixture_digests,
                                               h264_fixture_batch_stream,
+                                              h264_inter_fixture_stream,
                                               inter_fixture_stream,
                                               synth_idct_blocks, synth_state,
                                               synth_state_hard,
                                               synth_state_inter)
+from jmcodec_tpu_torch.tools.profiling import raw_events
 from jmcodec_tpu_torch.utils.device import (gpu_name_power, gpu_sm_clock_mhz,
                                             require_cuda)
 
@@ -448,10 +469,64 @@ def check_idct_kernel(dev):
     return err
 
 
-def h264_path(dev, card):
-    """Phases 6-8; returns the dequant_idct record and the path's figures."""
-    err = check_idct_kernel(dev)
+def idct_shapes(args):
+    """The dequant_idct kernel against dequant_idct_reference at a path's
+    two shapes (luma; both chroma planes), on the path's own inputs
+    (stack_symbols tensors): {shape: (its arguments, kernel ms,
+    reference ms, bound)} and the max_abs_err."""
+    captured = []
 
+    def capture(*a):
+        captured.append(a)
+        return ID.dequant_idct_blocks(*a)
+
+    RC._residuals(*(args[k] for k in (5, 6, 7, 8)), args[1].to(torch.int32),
+                  args[0].to(torch.int32), args[14], args[15], capture)
+    check(len(captured) == 2, f"{len(captured)} residual stages")
+    shapes, err = {}, 0
+    for key, a in zip(("luma", "chroma"), captured):
+        got = ID.dequant_idct_blocks(*a)
+        want = ID.dequant_idct_reference(*a)
+        torch.cuda.synchronize()
+        e = max_abs(got, want)
+        err = max(err, e)
+        check(e == 0, f"{key}: kernel != dequant_idct_reference")
+        del got, want
+        shapes[key] = (a, event_ms(lambda: ID.dequant_idct_blocks(*a), 20),
+                       event_ms(lambda: ID.dequant_idct_reference(*a), 3),
+                       idct_bound(*a))
+    return shapes, err
+
+
+def say_idct_shapes(phase, card, shapes):
+    for key, (a, k_ms, p_ms, bound) in shapes.items():
+        say(f"{phase} [{card}]: dequant_idct {key} (N={a[0].shape[0]}, "
+            f"{'dc + mask' if len(a) == 4 else 'dc'}): kernel "
+            f"{k_ms:.4f} ms, dequant_idct_reference {p_ms:.2f} ms, bound "
+            f"{bound[0]:.5f} ms ({bound[2]})")
+
+
+def idct_record(shapes, launches, err):
+    """The dequant_idct entry of the kernels' record from one path's
+    shapes."""
+    mean = lambda i: statistics.mean(v[i] for v in shapes.values())
+    bounds = [v[3] for v in shapes.values()]
+    rec = {"name": "dequant_idct", "route": "cuda",
+           "source": "jmcodec_tpu_torch/csrc/dequant_idct.cu",
+           "replaces": "jmcodec_tpu/kernels/pallas_idct.py:83",
+           "launches": launches, "max_abs_err": err,
+           "ms": mean(1), "plain_ms": mean(2),
+           "bound_ms": statistics.mean(b[0] for b in bounds),
+           "bound_by": max(bounds)[1], "library_ms": None}
+    for key, (_, k_ms, p_ms, bound) in shapes.items():
+        rec.update({f"ms_{key}": k_ms, f"plain_ms_{key}": p_ms,
+                    f"bound_ms_{key}": bound[0]})
+    return rec
+
+
+def h264_path(dev, card, err):
+    """Phases 7-8 (err: phase 6's); returns the dequant_idct record and
+    the path's figures."""
     # ---- phase 7: the path on the card ----
     digests = fixture_digests(H264_DIGESTS)
     stream = h264_fixture_batch_stream()
@@ -504,28 +579,8 @@ def h264_path(dev, card):
     t_e2e, _ = sync_time(e2e, REPS)
     t_dev, t_issued = sync_time(device_only, REPS)
 
-    # the kernel at the path's two shapes, on the path's own inputs
-    captured = []
-
-    def capture(*a):
-        captured.append(a)
-        return ID.dequant_idct_blocks(*a)
-
-    RC._residuals(*(args[k] for k in (5, 6, 7, 8)), args[1].to(torch.int32),
-                  args[0].to(torch.int32), args[14], args[15], capture)
-    check(len(captured) == 2, f"{len(captured)} residual stages")
-    k_ms, p_ms, bounds = {}, {}, {}
-    for key, a in zip(("luma", "chroma"), captured):
-        got = ID.dequant_idct_blocks(*a)
-        want = ID.dequant_idct_reference(*a)
-        torch.cuda.synchronize()
-        e = max_abs(got, want)
-        err = max(err, e)
-        check(e == 0, f"{key}: kernel != dequant_idct_reference")
-        del got, want
-        k_ms[key] = event_ms(lambda: ID.dequant_idct_blocks(*a), 20)
-        p_ms[key] = event_ms(lambda: ID.dequant_idct_reference(*a), 3)
-        bounds[key] = idct_bound(*a)
+    shapes, e = idct_shapes(args)
+    err = max(err, e)
     say(f"phase 8 [{card}]: end-to-end {H264_BATCH / t_e2e:.2f} fps "
         f"({t_e2e * 1000:.1f} ms per batch of {H264_BATCH}, parse on "
         f"{workers} threads + stack_symbols + H2D + decode); device-only "
@@ -533,24 +588,9 @@ def h264_path(dev, card):
         f"had issued the device-only decode's last launch at "
         f"{t_issued * 1000:.1f} ms, the device finished "
         f"{(t_dev - t_issued) * 1000:.1f} ms later")
-    for key, a in zip(("luma", "chroma"), captured):
-        say(f"phase 8 [{card}]: dequant_idct {key} (N={a[0].shape[0]}, "
-            f"{'dc + mask' if len(a) == 4 else 'dc'}): kernel "
-            f"{k_ms[key]:.4f} ms, dequant_idct_reference {p_ms[key]:.2f} "
-            f"ms, bound {bounds[key][0]:.5f} ms ({bounds[key][2]})")
-
-    mean = lambda d: statistics.mean(d.values())
-    rec = {"name": "dequant_idct", "route": "cuda",
-           "source": "jmcodec_tpu_torch/csrc/dequant_idct.cu",
-           "replaces": "jmcodec_tpu/kernels/pallas_idct.py:83",
-           "launches": launches, "max_abs_err": err,
-           "ms": mean(k_ms), "plain_ms": mean(p_ms),
-           "bound_ms": statistics.mean(b[0] for b in bounds.values()),
-           "bound_by": max(bounds.values())[1], "library_ms": None,
-           "ms_luma": k_ms["luma"], "plain_ms_luma": p_ms["luma"],
-           "bound_ms_luma": bounds["luma"][0],
-           "ms_chroma": k_ms["chroma"], "plain_ms_chroma": p_ms["chroma"],
-           "bound_ms_chroma": bounds["chroma"][0]}
+    say_idct_shapes("phase 8", card, shapes)
+    rec = idct_record(shapes, launches, err)
+    rec["launches_h264_intra"] = launches
     figures = {"slice": "h264 1080p all-intra batch decode",
                "batch": H264_BATCH, "e2e_fps": H264_BATCH / t_e2e,
                "device_fps": H264_BATCH / t_dev,
@@ -565,7 +605,7 @@ def kernel_launches(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return sum(1 for e in raw_events(prof) if e[1] == DeviceType.CUDA)
 
 
 def hevc_inter_path(dev, card, walk_rec, err):
@@ -693,9 +733,91 @@ def hevc_inter_path(dev, card, walk_rec, err):
     return walk_rec, figures
 
 
+def h264_inter_path(dev, card, idct_rec, err):
+    """Phases 11-12 (err: phase 6's). Returns the dequant_idct record
+    (idct_rec with the P path's launches and shapes added, or a record of
+    this path alone when the all-intra path was not driven) and the
+    path's figures."""
+    digests = fixture_digests(H264_INTER_DIGESTS)
+    stream = h264_inter_fixture_stream()
+    pics = list(parse_h264(stream))           # for the host's step counts
+
+    # ---- phase 11: the path on the card ----
+    reset_counts()
+    frames = decode_h264(stream, dev)
+    torch.cuda.synchronize()
+    launches = ID.LAUNCHES
+    n = len(pics)
+    check(HW.LAUNCHES == 0, "hevc_walk launched on the H.264 P path")
+    check(len(frames) == n == len(digests), f"{len(frames)} frames, {n} "
+                                            f"pictures")
+    check(launches == 2 * n, f"{launches} dequant_idct launches for {n} "
+                             f"pictures, want 2 each")
+    check(all(p.device == dev and p.dtype == torch.uint8
+              for f in frames for p in f), "frames not uint8 on the card")
+    check_digests([torch.stack([f[k] for f in frames]) for k in range(3)],
+                  digests, "h264 inter")
+    walks = [RT.intra_steps(fs.mb_class) for fs, _ in pics
+             if fs.mv is not None]
+    walked = sum(sum(w) for w in walks)
+    steps = sum(len(w) for w in walks)
+    sps = pics[0][1]
+    say(f"phase 11: {n} pictures {sps.width}x{sps.height} H.264 (I, then "
+        f"{len(walks)} P with {[fs.num_ref_l0 for fs, _ in pics[1:]]} "
+        f"references): dequant_idct launched {launches} times (2 a "
+        f"picture); the P pictures' intra scans walked "
+        f"{[sum(w) for w in walks]} and skipped "
+        f"{[len(w) - sum(w) for w in walks]} of {len(walks[0])} diagonals; "
+        f"all {3 * n} planes match the libavcodec SHA-256 digests")
+    del frames
+
+    # ---- phase 12: timing ----
+    t_e2e, _ = sync_time(lambda: decode_h264(stream, dev), REPS)
+    t_dev, t_issued = sync_time(lambda: decode_symbols(pics, dev), REPS)
+    dpb = DeviceDPB()
+    decode_symbols(pics[:1], dev, dpb=dpb)
+    fs1 = pics[1][0]
+    refs, ids = dpb.list0(fs1)
+    one_p = lambda: RT.decode_frame_symbols_inter(fs1, refs, ref_ids=ids)
+    t_p, t_p_issued = sync_time(one_p, 1)
+    n_kernels = kernel_launches(one_p)
+    shapes, e = idct_shapes(RC.stack_symbols([fs1], dev))
+    err = max(err, e)
+    say(f"phase 12 [{card}]: end-to-end {n / t_e2e:.3f} fps "
+        f"({t_e2e * 1000:.1f} ms for {n} pictures: native parse + device "
+        f"decode, picture by picture); device-only {n / t_dev:.3f} fps "
+        f"({t_dev * 1000:.1f} ms: the parsed symbols uploaded and decoded); "
+        f"the host had issued the last launch at {t_issued * 1000:.1f} ms, "
+        f"the device finished {(t_dev - t_issued) * 1000:.1f} ms later; the "
+        f"first P picture alone {t_p * 1000:.1f} ms (last launch issued at "
+        f"{t_p_issued * 1000:.1f} ms), {n_kernels} kernel launches")
+    say_idct_shapes("phase 12", card, shapes)
+
+    inter = {"launches_h264_inter": launches}
+    for key, (_, k_ms, p_ms, bound) in shapes.items():
+        inter.update({f"ms_inter_{key}": k_ms, f"plain_ms_inter_{key}": p_ms,
+                      f"bound_ms_inter_{key}": bound[0]})
+    if idct_rec is None:
+        idct_rec = idct_record(shapes, 0, err)
+    idct_rec.update(inter)
+    idct_rec["launches"] += launches
+    idct_rec["max_abs_err"] = max(idct_rec["max_abs_err"], err)
+    figures = {"slice": "h264 1080p P stream decode", "pictures": n,
+               "e2e_fps": n / t_e2e, "device_fps": n / t_dev,
+               "device_only_issued_ms": t_issued * 1000,
+               "device_only_wall_ms": t_dev * 1000,
+               "first_p_ms": t_p * 1000,
+               "first_p_issued_ms": t_p_issued * 1000,
+               "first_p_kernel_launches": n_kernels,
+               "intra_steps_walked": walked,
+               "intra_steps_skipped": steps - walked, "card": card}
+    return idct_rec, figures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter"),
+    ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter",
+                                       "h264_inter"),
                     help="drive one path only (no complete kernels' record)")
     only = ap.parse_args().only
     t_start = time.perf_counter()
@@ -720,12 +842,18 @@ def main() -> int:
         walk_rec, fig = hevc_path(dev, card, walk_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
+    if only in (None, "h264", "h264_inter"):
+        idct_err = check_idct_kernel(dev)
     if only in (None, "h264"):
-        idct_rec, fig = h264_path(dev, card)
+        idct_rec, fig = h264_path(dev, card, idct_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
     if only in (None, "hevc_inter"):
         walk_rec, fig = hevc_inter_path(dev, card, walk_rec, walk_err)
+        say(json.dumps(fig))
+        torch.cuda.empty_cache()
+    if only in (None, "h264_inter"):
+        idct_rec, fig = h264_inter_path(dev, card, idct_rec, idct_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
     recs = [r for r in (walk_rec, idct_rec) if r is not None]

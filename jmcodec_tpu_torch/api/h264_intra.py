@@ -36,15 +36,19 @@ def parse_h264_intra_symbols(stream: bytes, workers: int = 1):
     """Parse an all-intra H.264 stream into [(FrameSymbols, SPS), ...] in
     decode order. workers > 1 parses pictures on that many threads (the
     native parser releases the GIL). Parameter sets must precede the first
-    picture. Raises NotImplementedError for what the device path does not
-    cover (P/B slices, the 8x8 transform, MMCO, per-slice deblocking
-    control)."""
+    picture. Raises NotImplementedError for what the all-intra batch does
+    not cover (P and B pictures, the 8x8 transform, MMCO, per-slice
+    deblocking control)."""
     head, chunks = _picture_chunks(stream)
     parser = FastH264Parser()
     parser.parse_annexb(head)
 
     def parse_one(chunk):
-        return parser.parse_annexb(chunk)[0]
+        fs, sps = parser.parse_annexb(chunk)[0]
+        if fs.mv is not None:
+            raise NotImplementedError("P picture: decode it with "
+                                      "api.h264_inter.decode_h264")
+        return fs, sps
 
     if workers <= 1:
         return [parse_one(c) for c in chunks]

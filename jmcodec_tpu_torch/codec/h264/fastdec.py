@@ -1,25 +1,31 @@
 """Decode front end: Python header parsing + native (C++) slice-data
 parsing -> FrameSymbols for the device reconstruction.
 
-Covers I slices, CAVLC and CABAC. P and B slices, the 8x8 transform, MMCO
-and per-slice deblocking control raise NotImplementedError, which the
-caller lets propagate: there is no host decoder to fall back to.
+Covers I and P slices, CAVLC and CABAC; a P slice also fills the motion
+grids (mv, ref), the explicit weights and the list-0 modifications. B
+slices, the 8x8 transform, MMCO, per-slice deblocking control and slices
+of one picture that differ in their reference lists or weights raise
+NotImplementedError, which the caller lets propagate: there is no host
+decoder to fall back to.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
+
 from ...utils.bits import BitReader
 from ... import native
 from . import nal
 from .params import PPS, SPS, parse_pps, parse_sps
-from .slicehdr import SLICE_I, parse_slice_header
+from .slicehdr import SLICE_I, SLICE_P, parse_slice_header
 from .symbols import FrameSymbols
 
 
 class FastH264Parser:
-    """Annex-B -> FrameSymbols stream (intra scope), using the C++ parser."""
+    """Annex-B -> FrameSymbols stream (I and P pictures), using the C++
+    parser."""
 
     def __init__(self):
         self.sps: Dict[int, SPS] = {}
@@ -56,14 +62,15 @@ class FastH264Parser:
         mbw, mbh = sps.mb_width, sps.mb_height
         fs = FrameSymbols(mbw, mbh)
         parser = native.NativeSliceParser(mbw, mbh)
-        hdr0 = None
+        hdr0 = wp0 = rm0 = None
         for slice_id, u in enumerate(units):
             hdr, r = parse_slice_header(u.rbsp, sps, pps, u.nal_unit_type,
                                         u.nal_ref_idc)
-            if hdr.slice_type != SLICE_I:
-                raise NotImplementedError("intra path: I slices only")
+            if hdr.slice_type not in (SLICE_I, SLICE_P):
+                raise NotImplementedError("B slices")
             cabac = bool(pps.entropy_coding_mode_flag)
-            if not cabac and pps.transform_8x8_mode_flag:
+            t8 = bool(pps.transform_8x8_mode_flag)
+            if not cabac and hdr.slice_type == SLICE_I and t8:
                 raise NotImplementedError("8x8 transform (native parser)")
             if hdr.mmco_ops or hdr.adaptive_ref_pic_marking_mode_flag:
                 raise NotImplementedError("MMCO")
@@ -81,14 +88,48 @@ class FastH264Parser:
                 if cur != ref or hdr.disable_deblocking_filter_idc == 2:
                     raise NotImplementedError(
                         "per-slice deblock params differ (or idc==2)")
-            if cabac:
+            if hdr.slice_type == SLICE_P:
+                # the decode builds one reference list and one weight table
+                # per picture: every P slice must carry the same
+                rcur = (tuple(hdr.ref_mods_l0), hdr.num_ref_idx_active_l0)
+                if rm0 is None:
+                    rm0 = rcur
+                elif rm0 != rcur:
+                    raise NotImplementedError(
+                        "per-slice ref list modifications differ")
+                if hdr.weights_l0 is not None:
+                    wcur = (hdr.luma_log2_weight_denom,
+                            hdr.chroma_log2_weight_denom,
+                            tuple(hdr.weights_l0))
+                    if wp0 is None:
+                        wp0 = wcur
+                    elif wp0 != wcur:
+                        raise NotImplementedError(
+                            "per-slice pred_weight_tables differ")
+                if cabac:
+                    parser.parse_cabac_slice(
+                        fs, u.rbsp, r.pos, hdr.first_mb_in_slice,
+                        hdr.qp(pps), slice_id, True,
+                        hdr.num_ref_idx_active_l0, t8, hdr.cabac_init_idc)
+                else:
+                    parser.parse_p_slice(
+                        fs, u.rbsp, r.pos, hdr.first_mb_in_slice,
+                        hdr.qp(pps), slice_id, hdr.num_ref_idx_active_l0, t8)
+            elif cabac:
                 parser.parse_cabac_slice(
                     fs, u.rbsp, r.pos, hdr.first_mb_in_slice, hdr.qp(pps),
-                    slice_id, False, 1,
-                    bool(pps.transform_8x8_mode_flag), 0)
+                    slice_id, False, 1, t8, 0)
             else:
                 parser.parse_slice(fs, u.rbsp, r.pos, hdr.first_mb_in_slice,
                                    hdr.qp(pps), slice_id)
+        if rm0 is not None:
+            fs.mv = parser.mv.copy()
+            fs.ref = parser.ref.copy()
+            if wp0 is not None:
+                fs.wp = np.asarray(wp0[2], np.int32)
+                fs.wp_logwd = (wp0[0], wp0[1])
+            fs.ref_mods_l0 = list(rm0[0])
+            fs.num_ref_l0 = rm0[1]
         fs.fill_availability(parser.slice_map)
         fs.frame_num = hdr0.frame_num
         fs.is_idr = hdr0.is_idr

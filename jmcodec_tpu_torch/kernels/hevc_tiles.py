@@ -31,6 +31,7 @@ from ..codec.hevc import transform as HTR
 from ..codec.hevc.plan import ZIDX_NONE
 from ..utils.device import require_cuda
 from . import hevc_tables as HT
+from ._planes import cell_origins, edge_pad
 from ._tables import device_table as _t
 from .hevc_walk import walk
 
@@ -559,20 +560,13 @@ _CHROMA_F = np.array([
     [-2, 10, 58, -2]], np.int32)
 
 
-def _edge_pad(a, dim: int, before: int, after: int):
-    """a padded along dim by repeating its first and last sample."""
-    n = a.shape[dim]
-    idx = torch.arange(-before, n + after, device=a.device).clamp(0, n - 1)
-    return a.index_select(dim, idx)
-
-
 def _fir(a, taps, dim: int):
     """Each filter of taps [P, T] (a table of this module) along dim of the
     int32 tensor a, over its edge-padded window (T/2 - 1 samples before
     the sample, T/2 after) -> [P, *a.shape] int32."""
     P, T = taps.shape
     n = a.shape[dim]
-    ap = _edge_pad(a, dim, T // 2 - 1, T // 2)
+    ap = edge_pad(a, dim, T // 2 - 1, T // 2)
     f = _t(taps, a.device).reshape(P, T, *([1] * a.dim()))
     out = 0
     for k in range(T):
@@ -589,7 +583,7 @@ def prep_hevc_ref(Y, U, V):
     sample, so the integer positions keep sample << 6. The sums reach
     about 2e6 before the shift and stay within int16 after it."""
     P = MC_PAD_HEVC
-    pad = lambda a, p: _edge_pad(_edge_pad(a.to(_I32), -2, p, p), -1, p, p)
+    pad = lambda a, p: edge_pad(edge_pad(a.to(_I32), -2, p, p), -1, p, p)
     y = pad(Y, P)
     hor = _fir(y, _LUMA_F, -1)                          # [xf, Hp2, Wp2]
     luma = (_fir(hor, _LUMA_F, -2) >> 6).reshape(16, *y.shape)
@@ -609,20 +603,11 @@ def _gather(src, *idx):
     return src.reshape(-1)[flat]
 
 
-def _cell_origins(slot, step: int, pad: int):
-    """Sample (row, column) of every cell's top-left corner in a padded
-    plane: [Hc, 1] and [1, Wc] int64."""
-    Hc, Wc = slot.shape
-    dev = slot.device
-    return (torch.arange(Hc, device=dev)[:, None] * step + pad,
-            torch.arange(Wc, device=dev)[None, :] * step + pad)
-
-
 def _mc_hevc_luma(ref_ph, mv, slot):
     """ref_ph [R, 16, Hp2, Wp2] int16; mv [Hc, Wc, 2] / slot [Hc, Wc] per
     4x4 cell -> [Hc, Wc, 4, 4] int32 14-bit prediction."""
     mv, slot = mv.long(), slot.long()
-    y0, x0 = _cell_origins(slot, 4, MC_PAD_HEVC)
+    y0, x0 = cell_origins(slot, 4, MC_PAD_HEVC)
     xi = x0 + (mv[..., 0] >> 2)
     yi = y0 + (mv[..., 1] >> 2)
     ph = (mv[..., 1] & 3) * 4 + (mv[..., 0] & 3)
@@ -638,7 +623,7 @@ def _mc_hevc_chroma(ref_ph, mv, slot):
     gather time -> [Hc, Wc, 2, 2] int32 14-bit (per co-located 2x2 block)."""
     mv, slot = mv.long(), slot.long()
     dev = slot.device
-    y0, x0 = _cell_origins(slot, 2, MC_PAD_HEVC // 2)
+    y0, x0 = cell_origins(slot, 2, MC_PAD_HEVC // 2)
     xi = x0 + (mv[..., 0] >> 3)
     yi = y0 + (mv[..., 1] >> 3)
     xf = mv[..., 0] & 7

@@ -207,6 +207,9 @@ _NARROW = {"mb_class": np.int8, "qp": np.int8, "i4_modes": np.int8,
            "avail_left": np.int8, "avail_top": np.int8,
            "avail_topright": np.int8}
 _SCALARS = ("alpha_off", "beta_off", "chroma_qp_off", "second_chroma_qp_off")
+# a P picture's motion: quarter-pel MVs fit int16 at every level's range,
+# list-0 indices (-1 intra) int8
+_NARROW_MOTION = {"mv": np.int16, "ref": np.int8}
 
 
 def stack_symbols(fss, device=None):
@@ -218,9 +221,22 @@ def stack_symbols(fss, device=None):
     if device is None:
         from ..utils.device import require_cuda
         device = require_cuda()
-    arrs = [torch.from_numpy(np.stack([getattr(f, n) for f in fss])
-                             .astype(dt, copy=False)).to(device)
-            for n, dt in _NARROW.items()]
     scal = [torch.tensor([getattr(f, n) for f in fss], dtype=_I32,
                          device=device) for n in _SCALARS]
-    return arrs + scal
+    return _stack(fss, _NARROW, device) + scal
+
+
+def stack_motion(fss, device=None):
+    """The motion planes (mv [F, mbh*4, mbw*4, 2] int16, ref [F, mbh*4,
+    mbw*4] int8) of same-geometry P-picture FrameSymbols on `device` (None:
+    the card), narrowed as stack_symbols narrows."""
+    if device is None:
+        from ..utils.device import require_cuda
+        device = require_cuda()
+    return _stack(fss, _NARROW_MOTION, device)
+
+
+def _stack(fss, narrow, device):
+    return [torch.from_numpy(np.stack([getattr(f, n) for f in fss])
+                             .astype(dt, copy=False)).to(device)
+            for n, dt in narrow.items()]

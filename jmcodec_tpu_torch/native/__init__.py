@@ -60,6 +60,8 @@ def get_lib():
             head = [_P, _L, _L]
             lib.jmx_parse_i_slice.argtypes = head + [_I] * 5 + [_P] * 15
             lib.jmx_parse_i_slice.restype = _I
+            lib.jmx_parse_p_slice.argtypes = head + [_I] * 7 + [_P] * 18
+            lib.jmx_parse_p_slice.restype = _I
             lib.jmx_parse_cabac_slice.argtypes = (head + [_I] * 9
                                                   + [_P] * 27)
             lib.jmx_parse_cabac_slice.restype = _I
@@ -87,7 +89,19 @@ class NativeSliceParser:
         self.nz_chroma = np.full((2, mbh * 2, mbw * 2), -1, np.int32)
         self.i4_grid = np.full((mbh * 4, mbw * 4), -1, np.int32)
         self.slice_map = np.full((mbh, mbw), -1, np.int32)
+        self.mv = self.ref = self.done = None
         self._cabac = None
+
+    def _motion_ptrs(self):
+        """The picture's motion grids, made at the first P slice and
+        shared by every slice of the picture, CAVLC or CABAC: mv [mbh*4,
+        mbw*4, 2] quarter-pel, ref [mbh*4, mbw*4] (-1 intra), done."""
+        if self.mv is None:
+            mh, mw = self.mbh, self.mbw
+            self.mv = np.zeros((mh * 4, mw * 4, 2), np.int32)
+            self.ref = np.full((mh * 4, mw * 4), -1, np.int32)
+            self.done = np.zeros((mh * 4, mw * 4), np.uint8)
+        return [_ptr(a) for a in (self.mv, self.ref, self.done)]
 
     def _pcm_planes(self, fs):
         if fs.pcm_y is None:
@@ -125,6 +139,25 @@ class NativeSliceParser:
         self._keep_pcm(fs, pcm_y, pcm_c)
         return n
 
+    def parse_p_slice(self, fs, rbsp: bytes, bit_offset: int, first_mb: int,
+                      slice_qp: int, slice_id: int, num_ref: int,
+                      t8_allowed: bool) -> int:
+        """Parse a CAVLC P slice's slice_data into fs and the motion grids
+        self.mv / self.ref. Returns the number of macroblocks parsed;
+        raises NotImplementedError for the 8x8 transform."""
+        buf = np.frombuffer(rbsp, np.uint8)
+        pcm_y, pcm_c = self._pcm_planes(fs)
+        n = self.lib.jmx_parse_p_slice(
+            _ptr(buf), len(rbsp), bit_offset, self.mbw, self.mbh, first_mb,
+            slice_qp, slice_id, int(num_ref), int(t8_allowed),
+            *self._symbol_ptrs(fs, pcm_y, pcm_c), *self._motion_ptrs())
+        if n == -21:
+            raise NotImplementedError("8x8 transform (native P parser)")
+        if n < 0:
+            raise ValueError(f"native P slice parse error {n}")
+        self._keep_pcm(fs, pcm_y, pcm_c)
+        return n
+
     def parse_cabac_slice(self, fs, rbsp: bytes, bit_offset: int,
                           first_mb: int, slice_qp: int, slice_id: int,
                           is_p: bool, num_ref: int, t8_allowed: bool,
@@ -135,9 +168,6 @@ class NativeSliceParser:
         mh, mw = self.mbh, self.mbw
         if self._cabac is None:
             z = lambda *s: np.zeros(s, np.int32)
-            self.mv = z(mh * 4, mw * 4, 2)
-            self.ref = np.full((mh * 4, mw * 4), -1, np.int32)
-            self.done = np.zeros((mh * 4, mw * 4), np.uint8)
             # skip, t8, cbp luma/chroma, cbf dc/luma/chroma dc/chroma ac, mvd
             self._cabac = (z(mh, mw), z(mh, mw), z(mh, mw), z(mh, mw),
                            z(mh, mw), z(mh * 4, mw * 4), z(2, mh, mw),
@@ -148,8 +178,7 @@ class NativeSliceParser:
             _ptr(buf), len(rbsp), bit_offset, mw, mh, first_mb, slice_qp,
             slice_id, int(is_p), int(num_ref), int(t8_allowed),
             int(cabac_init_idc), *self._symbol_ptrs(fs, pcm_y, pcm_c),
-            _ptr(self.mv), _ptr(self.ref), _ptr(self.done),
-            *[_ptr(a) for a in self._cabac])
+            *self._motion_ptrs(), *[_ptr(a) for a in self._cabac])
         if n == -21:
             raise NotImplementedError("8x8 transform (native CABAC path)")
         if n < 0:

@@ -1,7 +1,8 @@
 """Inputs for checks and timings of the port: the committed 1080p HEVC and
-H.264 all-intra fixtures at the smoke's batches, the 1080p HEVC inter
-fixture, seeded synthetic inputs for holding each kernel against its plain
-version, and copies of reference objects into the port's own types."""
+H.264 all-intra fixtures at the smoke's batches, the 1080p HEVC and H.264
+inter fixtures, seeded synthetic inputs for holding each kernel against
+its plain version, and copies of reference objects into the port's own
+types."""
 
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ H264_DIGESTS = os.path.join(ROOT, "tests", "data",
 INTER_FIXTURE = os.path.join(ROOT, "tests", "data", "hevc_1080p_inter.h265")
 INTER_DIGESTS = os.path.join(ROOT, "tests", "data",
                              "hevc_1080p_inter.sha256.json")
+H264_INTER_FIXTURE = os.path.join(ROOT, "tests", "data",
+                                  "h264_1080p_inter.h264")
+H264_INTER_DIGESTS = os.path.join(ROOT, "tests", "data",
+                                  "h264_1080p_inter.sha256.json")
 # frames per decode batch, as bench.py's 1080p figures decode them
 BATCH = 16
 H264_BATCH = 32
@@ -81,6 +86,24 @@ def inter_fixture_stream() -> bytes:
         return f.read()
 
 
+def h264_inter_fixture_stream() -> bytes:
+    """The 1080p H.264 P fixture: an IDR picture and four P pictures
+    (x264, CABAC, main profile, ref=3 with weightp=2: explicit weights and
+    one reference at two list indices, num_ref_idx_l0 1, 3, 4, 4; POC type
+    2, no 8x8 transform, no PCM). Its libavcodec digests are in
+    H264_INTER_DIGESTS. Made with tests/util_oracle.py (make_frame,
+    oracle_encode, oracle_decode) from inter_fixture_stream's frames, five
+    of them, each chroma plane cut at [i:i+540, 3i//2:3i//2+960]:
+
+        oracle_encode(frames, 1920, 1080, qp=30, codec="libx264", gop=5,
+                      extra="cabac=1:ref=3:weightp=2", profile="main")
+
+    The block of new edges puts 283-507 intra macroblocks into each P
+    picture, on 52-93 of the 254 diagonals of the intra scan."""
+    with open(H264_INTER_FIXTURE, "rb") as f:
+        return f.read()
+
+
 def synth_idct_blocks(N: int, seed: int = 0):
     """Seeded inputs of dequant_idct_blocks as numpy arrays: levels [N, 4,
     4] int16 over the full int16 range, qp [N] int32 cycling through every
@@ -96,13 +119,15 @@ def synth_idct_blocks(N: int, seed: int = 0):
 
 def _copy_fields(src, dst):
     for name, val in vars(src).items():
-        setattr(dst, name, val.copy() if isinstance(val, np.ndarray) else val)
+        setattr(dst, name, val.copy()
+                if isinstance(val, (np.ndarray, list, dict)) else val)
     return dst
 
 
 def symbols_from_reference(fs) -> FrameSymbols:
     """A FrameSymbols-shaped object of another package (duck-typed: the
-    same attributes) copied into the port's FrameSymbols."""
+    same attributes) copied into the port's FrameSymbols, a P picture's
+    motion, weights and list-0 modifications included."""
     return _copy_fields(fs, FrameSymbols(fs.mb_width, fs.mb_height))
 
 

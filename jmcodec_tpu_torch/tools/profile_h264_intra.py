@@ -27,7 +27,7 @@ from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
 from jmcodec_tpu_torch.tools.fixtures import (H264_BATCH,
                                               h264_fixture_batch_stream)
-from jmcodec_tpu_torch.tools.profile_hevc_intra import profile_decode
+from jmcodec_tpu_torch.tools.profiling import profile_decode
 from jmcodec_tpu_torch.utils.device import gpu_name_power, require_cuda
 
 STAGES = ("_residuals", "_intra_tile_scan", "_deblock_tile_scan_intra")

@@ -30,7 +30,7 @@ from jmcodec_tpu_torch.codec.hevc.refdec import HevcRefDecoder
 from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
 from jmcodec_tpu_torch.tools.fixtures import inter_fixture_stream
 from jmcodec_tpu_torch.tools.profile_h264_intra import _staged
-from jmcodec_tpu_torch.tools.profile_hevc_intra import profile_decode
+from jmcodec_tpu_torch.tools.profiling import profile_decode
 from jmcodec_tpu_torch.utils.device import require_cuda
 
 STAGES = ("stack_plans", "prep_hevc_ref", "_mc_hevc_luma", "_mc_hevc_chroma",
