@@ -10,7 +10,9 @@ pictures, I then P and B, CTU 64; decode_hevc: native parse, DPB, phase-
 plane MC, the scan over the inter base, filters, output order) and the
 H.264 P stream decode (an IDR and four P pictures; decode_h264: native
 parse, device DPB, quarter-pel MC with explicit weights, the intra scan
-over the MC tiles, the per-edge-bS deblock scan). Every kernel launch
+over the MC tiles, the per-edge-bS deblock scan); then the streaming
+DecoderSession, the user's entry point, over both codecs' device paths
+and the H.264 host fallback with its DPB mirror. Every kernel launch
 count is set to 0 just before a path is driven and read just after.
 Phases, one line each; any failure raises and the exit code is
 non-zero:
@@ -57,18 +59,41 @@ non-zero:
      dequant_idct kernel launched twice per picture, all 15 planes equal
      to the committed libavcodec SHA-256 digests; per picture the intra
      scan's diagonals walked and skipped
- 12. timing of the H.264 P path (median of 3; phase 11's decode is the
-     warm-up): end-to-end fps (native parse + device decode, picture by
-     picture); device-only fps (the parsed symbols replayed through
-     decode_symbols), with the time at which the host had issued the last
-     launch; the kernel launches of the first P picture (one decode under
-     torch.profiler); and the dequant_idct kernel against
-     dequant_idct_reference at the P picture's two shapes
+ 12. timing of the H.264 P path (one run each, REPS_H264_P; phase 11's
+     decode is the warm-up): end-to-end fps (native parse + device
+     decode, picture by picture); device-only fps (the parsed symbols
+     replayed through decode_symbols), with the time at which the host had
+     issued the last launch; the kernel launches of the first P picture
+     (one decode under torch.profiler); and the dequant_idct kernel
+     against dequant_idct_reference at the P picture's two shapes
+ 13. the H.264 session at 1080p: DecoderSession() fed the first three
+     pictures of the H.264 P fixture (IDR + 2 P) in 1 MiB chunks, frames
+     taken with get_frame_device as bench.py's session figures take them;
+     all three decoded on the device (frames_device), dequant_idct
+     launched twice a picture, all 9 planes equal to the libavcodec
+     digests; end-to-end fps (one run) and the session's stage timers
+ 14. the HEVC session at 1080p: the HEVC inter fixture (16 pictures), then
+     the HEVC all-intra fixture (2 pictures), the same way; every picture
+     decoded on the device, every plane equal to its digest; fps and walk
+     launches of each
+ 15. the small session fixtures through DecoderSession() (B with POC type
+     0, High with CABAC and the 8x8 transform, I_PCM, three IDR): every
+     plane equal to its digest, as many pictures on the device and on the
+     host as the CPU tests assert (the B and High streams' IDR on the
+     device, the rest on the host through the DPB mirror); then the
+     bit-flip corpus of tests/test_robustness.py on the three-IDR stream:
+     no exception escapes the session, no CUDA error, picture 1 and the
+     picture after the corrupt one bit-exact; then the corpus on two I + P
+     streams whose every picture takes the device path: a flipped P
+     picture that parses is decoded on the device, and every trial gives
+     the frames and counts of the same session on the CPU (which the CPU
+     tests hold to jmcodec_tpu's)
 
-With --only hevc, --only h264, --only hevc_inter or --only h264_inter just
-that path is driven (phase 3 with either HEVC path, phase 6 with either
-H.264 path; for work on one kernel or path, the run then prints no
-kernels' record that is complete).
+With --only hevc, --only h264, --only hevc_inter, --only h264_inter or
+--only session just that path is driven (phase 3 with either HEVC path,
+phase 6 with either H.264 path, both with the session; for work on one
+kernel or path, the run then prints no kernels' record that is
+complete).
 
 Each kernel's record also carries the least time the card could take for
 its launch (bound_ms): the larger of its bytes (each input read once, each
@@ -86,6 +111,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import logging
 import os
 import statistics
 import sys
@@ -103,6 +129,7 @@ from jmcodec_tpu_torch.api.h264_intra import parse_h264_intra_symbols
 from jmcodec_tpu_torch.api.hevc_inter import (DeviceRecon, decode_hevc,
                                               decode_plans)
 from jmcodec_tpu_torch.api.hevc_intra import parse_hevc_intra_plans
+from jmcodec_tpu_torch.api.session import Codec, DecoderSession
 from jmcodec_tpu_torch.codec.hevc.refdec import HevcRefDecoder
 from jmcodec_tpu_torch.kernels import _build
 from jmcodec_tpu_torch.kernels import hevc_tables as HT
@@ -111,24 +138,35 @@ from jmcodec_tpu_torch.kernels import hevc_walk as HW
 from jmcodec_tpu_torch.kernels import idct as ID
 from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
-from jmcodec_tpu_torch.tools.fixtures import (BATCH, H264_BATCH,
+from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
+                                              FIXTURE, H264_BATCH,
                                               H264_DIGESTS,
                                               H264_INTER_DIGESTS,
-                                              INTER_DIGESTS,
+                                              H264_SESSION_PICTURES,
+                                              INTER_DIGESTS, INTER_FIXTURE,
+                                              P_CORPUS_FIXTURES,
+                                              SESSION_FIXTURES,
                                               fixture_batch_stream,
                                               fixture_digests,
                                               h264_fixture_batch_stream,
                                               h264_inter_fixture_stream,
+                                              h264_session_stream,
                                               inter_fixture_stream,
+                                              session_corpus,
+                                              session_fixture,
                                               synth_idct_blocks, synth_state,
                                               synth_state_hard,
                                               synth_state_inter)
 from jmcodec_tpu_torch.tools.profiling import raw_events
 from jmcodec_tpu_torch.utils.device import (gpu_name_power, gpu_sm_clock_mhz,
                                             require_cuda)
+from jmcodec_tpu_torch.utils.metrics import counters, logger, timers
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = 3
+# runs of each phase 12 timing: a 1080p P picture takes ~10 s, so its median
+# of 3 would take most of the time limit
+REPS_H264_P = 1
 # published peaks of one H100 SXM: HBM bytes/s, and int32 ALU operations/s
 # (the data sheet's 67 TFLOP/s of float32 counts an FMA as two on 128 lanes
 # per SM; an int32 operation counts once on 64)
@@ -292,7 +330,8 @@ def idct_bound(coeffs, qp_blk, dc=None, dc_mask=None):
 
 
 def check_digests(planes, digests, what):
-    out = [t.cpu().numpy() for t in planes]
+    out = [t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+           for t in planes]
     for f in range(out[0].shape[0]):
         for k, plane in enumerate("YUV"):
             h = hashlib.sha256(np.ascontiguousarray(out[k][f])).hexdigest()
@@ -772,8 +811,9 @@ def h264_inter_path(dev, card, idct_rec, err):
     del frames
 
     # ---- phase 12: timing ----
-    t_e2e, _ = sync_time(lambda: decode_h264(stream, dev), REPS)
-    t_dev, t_issued = sync_time(lambda: decode_symbols(pics, dev), REPS)
+    t_e2e, _ = sync_time(lambda: decode_h264(stream, dev), REPS_H264_P)
+    t_dev, t_issued = sync_time(lambda: decode_symbols(pics, dev),
+                                REPS_H264_P)
     dpb = DeviceDPB()
     decode_symbols(pics[:1], dev, dpb=dpb)
     fs1 = pics[1][0]
@@ -814,10 +854,208 @@ def h264_inter_path(dev, card, idct_rec, err):
     return idct_rec, figures
 
 
+def run_session(codec, stream, step=1 << 20):
+    """Decode stream with DecoderSession(codec) on the card as bench.py's
+    session figures do: fed in chunks of step bytes, frames taken with
+    get_frame_device as they come, EOF, the rest taken, then a sync.
+    Returns (the frames, seconds, the frames_device delta, the stage
+    timers' delta in ms)."""
+    c0, s0 = counters.get("frames_device"), timers.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = DecoderSession(codec)
+    frames, pos = [], 0
+
+    def drain():
+        while (fr := sess.get_frame_device()) is not None:
+            frames.append(fr)
+
+    while pos < len(stream):
+        pos += sess.input_data(stream[pos:pos + step])
+        drain()
+    sess.set_eof()
+    drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    s1 = timers.snapshot()
+    stages = {k: round((v - s0.get(k, 0)) * 1000, 1) for k, v in s1.items()
+              if v - s0.get(k, 0) > 1e-4}
+    return frames, dt, int(counters.get("frames_device") - c0), stages
+
+
+def check_session_frames(frames, digests, dev, what):
+    check(len(frames) == len(digests), f"{what}: {len(frames)} frames, "
+                                       f"{len(digests)} digests")
+    check(all(isinstance(p, torch.Tensor) and p.device == dev
+              and p.dtype == torch.uint8 for f in frames for p in f),
+          f"{what}: frames not uint8 tensors on the card")
+    check_digests([torch.stack([f[k] for f in frames]) for k in range(3)],
+                  digests, what)
+
+
+def session_h264_path(dev, card):
+    """Phase 13. Returns the dequant_idct launches and the figures."""
+    stream = h264_session_stream()
+    n = H264_SESSION_PICTURES
+    digests = fixture_digests(H264_INTER_DIGESTS)[:n]
+    reset_counts()
+    frames, dt, n_dev, stages = run_session(Codec.H264, stream)
+    launches = ID.LAUNCHES
+    check(HW.LAUNCHES == 0, "hevc_walk launched on the H.264 session")
+    check(n_dev == n, f"{n_dev} of {n} pictures decoded on the device")
+    check(launches == 2 * n, f"{launches} dequant_idct launches for {n} "
+                             f"pictures, want 2 each")
+    check_session_frames(frames, digests, dev, "h264 session")
+    h, w = frames[0][0].shape
+    say(f"phase 13 [{card}]: H.264 session, {n} pictures {w}x{h} (IDR + "
+        f"{n - 1} P) in 1 MiB chunks: {n / dt:.3f} fps end to end "
+        f"({dt * 1000:.1f} ms), frames_device {n_dev}, dequant_idct "
+        f"launched {launches} times; all {3 * n} planes match the "
+        f"libavcodec SHA-256 digests; stage timers (host issue, ms) "
+        f"{stages}")
+    return launches, {"slice": "h264 1080p session", "pictures": n,
+                      "e2e_fps": n / dt, "wall_ms": dt * 1000,
+                      "frames_device": n_dev, "dequant_idct_launches":
+                      launches, "stages_ms": stages, "card": card}
+
+
+def session_hevc_path(dev, card):
+    """Phase 14. Returns the hevc_walk launches and the figures."""
+    figures, total = [], 0
+    for what, path, digests in (
+            ("inter", INTER_FIXTURE, fixture_digests(INTER_DIGESTS)),
+            ("intra", FIXTURE, fixture_digests())):
+        with open(path, "rb") as f:
+            stream = f.read()
+        n = len(digests)
+        reset_counts()
+        frames, dt, n_dev, stages = run_session(Codec.HEVC, stream)
+        launches = HW.LAUNCHES
+        total += launches
+        check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC session")
+        check(n_dev == n, f"hevc {what}: {n_dev} of {n} pictures decoded "
+                          f"on the device")
+        check(launches > 0, f"hevc {what}: hevc_walk never launched")
+        check_session_frames(frames, digests, dev, f"hevc {what} session")
+        h, w = frames[0][0].shape
+        say(f"phase 14 [{card}]: HEVC session, {what} fixture, {n} pictures "
+            f"{w}x{h} in 1 MiB chunks: {n / dt:.2f} fps end to end "
+            f"({dt * 1000:.1f} ms), frames_device {n_dev}, hevc_walk "
+            f"launched {launches} times; all {3 * n} planes match the "
+            f"libavcodec SHA-256 digests; stage timers (host issue, ms) "
+            f"{stages}")
+        figures.append({"slice": f"hevc 1080p {what} session",
+                        "pictures": n, "e2e_fps": n / dt,
+                        "wall_ms": dt * 1000, "frames_device": n_dev,
+                        "walk_launches": launches, "stages_ms": stages,
+                        "card": card})
+    return total, figures
+
+
+def session_small_streams(card):
+    """Phase 15. Returns the dequant_idct launches and the figures."""
+    reset_counts()
+    paths = {}
+    for name, (n_dev_want, n_host_want) in SESSION_FIXTURES.items():
+        stream, digests = session_fixture(name)
+        frames, n = session_decode(stream)
+        n_dev = n["frames_device"]
+        dropped = n["corrupt_chunks"] + n["unsupported_pictures"]
+        check(n_dev == n_dev_want and len(frames) == n_dev_want + n_host_want
+              and not dropped, f"{name}: {n_dev} pictures on the device, "
+                               f"{len(frames)} in all, {dropped} dropped")
+        check_digests([np.stack([f[k] for f in frames]) for k in range(3)],
+                      digests, name)
+        paths[name] = (n_dev, len(frames) - n_dev)
+    launches = ID.LAUNCHES
+    check(HW.LAUNCHES == 0, "hevc_walk launched on the H.264 session")
+    check(launches == 2 * sum(d for d, _ in paths.values()),
+          f"{launches} dequant_idct launches for the small streams")
+    stream, digests = session_fixture(CORPUS_FIXTURE)
+    outcomes = []
+    logger.setLevel(logging.ERROR)       # a dropped picture warns
+    for data in session_corpus(stream):
+        frames, n = session_decode(data)
+        check(len(frames) in (2, 3), f"corpus: {len(frames)} frames")
+        check_digests([np.stack([frames[i][k] for i in (0, -1)])
+                       for k in range(3)], [digests[0], digests[2]],
+                      "corpus")
+        outcomes.append((len(frames), n["corrupt_chunks"]))
+    p_outcomes = {name: session_p_corpus(name) for name in P_CORPUS_FIXTURES}
+    say(f"phase 15 [{card}]: session fixtures (pictures on the device, on "
+        f"the host) {paths}, every plane matches its libavcodec digest; "
+        f"dequant_idct launched {launches} times; bit-flip corpus of "
+        f"{len(outcomes)} trials at 96x64 (frames out, corrupt pictures "
+        f"dropped) {outcomes}: no exception, no CUDA error, pictures 1 and "
+        f"3 bit-exact; on the I + P streams (frames out, corrupt pictures "
+        f"dropped) {p_outcomes}: the flipped P picture decoded on the "
+        f"device where it parses, frames and counts equal to the CPU "
+        f"session's, picture 1 bit-exact")
+    return launches, {"slice": "session small streams and corpus",
+                      "paths": paths, "corpus": outcomes,
+                      "p_corpus": p_outcomes, "card": card}
+
+
+def session_decode(data, device=None):
+    """data through DecoderSession(device=device): the frames as numpy
+    planes and the session counters' deltas."""
+    keys = ("frames_device", "corrupt_chunks", "unsupported_pictures")
+    c0 = counters.snapshot()
+    sess = DecoderSession(device=device)
+    sess.input_data(data)
+    sess.set_eof()
+    frames = []
+    while (fr := sess.get_frame()) is not None:
+        frames.append(fr)
+    torch.cuda.synchronize()               # raises on a CUDA error
+    c1 = counters.snapshot()
+    return frames, {k: int(c1.get(k, 0) - c0.get(k, 0)) for k in keys}
+
+
+def session_p_corpus(name):
+    """Phase 15's corpus on an I + P stream: each trial on the card against
+    the same session on the CPU. Returns [(frames out, corrupt dropped)]."""
+    stream, digests = session_fixture(name)
+    outcomes = []
+    for trial, data in enumerate(session_corpus(stream)):
+        frames, n = session_decode(data)
+        want, wn = session_decode(data, "cpu")
+        what = f"{name} corpus trial {trial}"
+        check(n == wn, f"{what}: counts {n} on the card, {wn} on the CPU")
+        check(n["corrupt_chunks"] == (0 if trial in P_CORPUS_FIXTURES[name]
+                                      else 1)
+              and len(frames) == n["frames_device"],
+              f"{what}: {n}, {len(frames)} frames")
+        check(len(frames) == len(want) and all(
+            np.array_equal(a, b) for f, g in zip(frames, want)
+            for a, b in zip(f, g)), f"{what}: frames differ from the CPU's")
+        check_digests([np.stack([frames[0][k]]) for k in range(3)],
+                      digests[:1], what)
+        outcomes.append((len(frames), n["corrupt_chunks"]))
+    return outcomes
+
+
+def session_path(dev, card, walk_rec, idct_rec):
+    """Phases 13-15: add the session's launches to the kernels' records."""
+    idct_13, fig13 = session_h264_path(dev, card)
+    say(json.dumps(fig13))
+    torch.cuda.empty_cache()
+    walk_14, fig14 = session_hevc_path(dev, card)
+    for fig in fig14:
+        say(json.dumps(fig))
+    torch.cuda.empty_cache()
+    idct_15, fig15 = session_small_streams(card)
+    say(json.dumps(fig15))
+    for rec, n in ((walk_rec, walk_14), (idct_rec, idct_13 + idct_15)):
+        if rec is not None:
+            rec["launches_session"] = n
+            rec["launches"] += n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter",
-                                       "h264_inter"),
+                                       "h264_inter", "session"),
                     help="drive one path only (no complete kernels' record)")
     only = ap.parse_args().only
     t_start = time.perf_counter()
@@ -836,13 +1074,13 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
 
     walk_rec, idct_rec = None, None
-    if only in (None, "hevc", "hevc_inter"):
+    if only in (None, "hevc", "hevc_inter", "session"):
         walk_err = check_walk_shapes(dev)
     if only in (None, "hevc"):
         walk_rec, fig = hevc_path(dev, card, walk_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
-    if only in (None, "h264", "h264_inter"):
+    if only in (None, "h264", "h264_inter", "session"):
         idct_err = check_idct_kernel(dev)
     if only in (None, "h264"):
         idct_rec, fig = h264_path(dev, card, idct_err)
@@ -856,6 +1094,8 @@ def main() -> int:
         idct_rec, fig = h264_inter_path(dev, card, idct_rec, idct_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
+    if only in (None, "session"):
+        session_path(dev, card, walk_rec, idct_rec)
     recs = [r for r in (walk_rec, idct_rec) if r is not None]
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"kernels' build included")

@@ -5,8 +5,9 @@ Covers I and P slices, CAVLC and CABAC; a P slice also fills the motion
 grids (mv, ref), the explicit weights and the list-0 modifications. B
 slices, the 8x8 transform, MMCO, per-slice deblocking control and slices
 of one picture that differ in their reference lists or weights raise
-NotImplementedError, which the caller lets propagate: there is no host
-decoder to fall back to.
+NotImplementedError: the session (api/session.py) then decodes the
+picture on the host (refdec.py), the stream entry points
+(api/h264_intra.py, api/h264_inter.py) let it propagate.
 """
 
 from __future__ import annotations

@@ -51,13 +51,14 @@ class HevcRefDecoder:
     motion), ref_pixels [(poc, y, cb, cr), ...] the coded-size planes of
     its references in plan.ref_pocs order (empty for an I picture); it
     returns the picture's coded-size (Y, U, V). Those planes go into the
-    DPB as they are, so they stay wherever the hook put them; frames come
-    out in output order, cropped to the conformance window."""
+    DPB as they are, so they stay wherever the hook put them. decode and
+    flush return the frames output since the last call, in output order,
+    cropped to the conformance window; the decoder keeps none of them."""
 
     def __init__(self, device_recon):
         self.sps: Dict[int, HevcSPS] = {}
         self.pps: Dict[int, HevcPPS] = {}
-        self.frames: List[tuple] = []
+        self._out: List[tuple] = []     # output, not yet returned
         self.device_recon = device_recon
         # DPB + POC state (8.3.1 / 8.3.2)
         self.dpb: List[RefPic] = []
@@ -134,7 +135,7 @@ class HevcRefDecoder:
     def _emit(self, rp: RefPic) -> None:
         rp.output_needed = False
         w, h = rp.crop
-        self.frames.append((rp.y[:h, :w], rp.cb[:h // 2, :w // 2],
+        self._out.append((rp.y[:h, :w], rp.cb[:h // 2, :w // 2],
                             rp.cr[:h // 2, :w // 2]))
 
     def _bump(self, allowed: int) -> None:
@@ -150,7 +151,11 @@ class HevcRefDecoder:
         """Drain the reorder buffer (EOF)."""
         self._bump(0)
         self.dpb = [rp for rp in self.dpb if rp.is_reference]
-        return self.frames
+        return self._take()
+
+    def _take(self) -> List[tuple]:
+        out, self._out = self._out, []
+        return out
 
     # -- top level ----------------------------------------------------------
 
@@ -177,7 +182,7 @@ class HevcRefDecoder:
                 au.append((hdr, u.rbsp, u.emu_positions))
         if au:
             self._decode_picture(au)
-        return self.flush() if flush else self.frames
+        return self.flush() if flush else self._take()
 
     def _pps_probe(self, rbsp: bytes, nal_type: int) -> HevcPPS:
         r = BitReader(rbsp)

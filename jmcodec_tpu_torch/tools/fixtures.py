@@ -1,8 +1,8 @@
 """Inputs for checks and timings of the port: the committed 1080p HEVC and
 H.264 all-intra fixtures at the smoke's batches, the 1080p HEVC and H.264
-inter fixtures, seeded synthetic inputs for holding each kernel against
-its plain version, and copies of reference objects into the port's own
-types."""
+inter fixtures, the small session fixtures and the bit-flip corpus,
+seeded synthetic inputs for holding each kernel against its plain version,
+and copies of reference objects into the port's own types."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 
+from ..api.h264_intra import _picture_chunks
 from ..codec.h264.symbols import FrameSymbols
 from ..codec.hevc.plan import ZIDX_NONE, HevcFramePlan
 
@@ -102,6 +103,60 @@ def h264_inter_fixture_stream() -> bytes:
     picture, on 52-93 of the 254 diagonals of the intra scan."""
     with open(H264_INTER_FIXTURE, "rb") as f:
         return f.read()
+
+
+# the session fixtures under tests/data (their recipes are in
+# tests/test_torch_session_host.py) -> (pictures the session decodes on the
+# device, on the host): the B stream's and the High stream's IDR on the
+# device and the rest on the host through the DPB mirror, the I_PCM
+# pictures on the host, the three IDR pictures on the device
+SESSION_FIXTURES = {"h264_session_b_96x64": (1, 5),
+                    "h264_session_high_96x64": (1, 5),
+                    "h264_session_pcm_48x48": (0, 3),
+                    "h264_session_idr3_96x64": (3, 0)}
+# the streams of the bit-flip corpus: three IDR pictures; and two streams
+# of I and P pictures that all take the device path (CAVLC, three slices a
+# picture; CAVLC, ref=3), so that a flipped P picture reaches the device
+# inter decode, with the trials whose flipped picture does (the others are
+# dropped as corrupt)
+CORPUS_FIXTURE = "h264_session_idr3_96x64"
+P_CORPUS_FIXTURES = {"h264_inter_slices3_96x64": {0, 1, 2, 3, 6},
+                     "h264_inter_veryslow_96x64": {4, 6}}
+# pictures of the 1080p H.264 P fixture that the session phase decodes
+H264_SESSION_PICTURES = 3
+
+
+def session_fixture(name: str) -> tuple[bytes, list[dict]]:
+    """A session fixture's stream and its libavcodec digests."""
+    path = os.path.join(ROOT, "tests", "data", name)
+    with open(path + ".h264", "rb") as f:
+        stream = f.read()
+    return stream, fixture_digests(path + ".sha256.json")
+
+
+def h264_session_stream() -> bytes:
+    """The first H264_SESSION_PICTURES pictures of the 1080p H.264 P
+    fixture (its IDR and P pictures), parameter sets included."""
+    head, chunks = _picture_chunks(h264_inter_fixture_stream())
+    return head + b"".join(chunks[:H264_SESSION_PICTURES])
+
+
+def session_corpus(stream: bytes, trials: int = 8, seed: int = 1) -> list:
+    """The bit-flip corpus of tests/test_robustness.py: per trial one bit
+    flipped inside the second picture's bytes, away from its slice header
+    (the corpus's rng and draws; on a stream of IDR pictures the second
+    picture is the robustness test's second GOP)."""
+    head, chunks = _picture_chunks(stream)
+    lo = len(head) + len(chunks[0])
+    hi = lo + len(chunks[1])
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(trials):
+        b = bytearray(stream)
+        pos = int(rng.integers(lo + 24, hi - 1))
+        b[pos] ^= 1 << int(rng.integers(0, 8))
+        out.append(bytes(b))
+    return out
 
 
 def synth_idct_blocks(N: int, seed: int = 0):

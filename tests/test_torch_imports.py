@@ -2,7 +2,8 @@
 imports jax or jmcodec_tpu; every module of the port imports with both
 names blocked; and the native parser's sources are the JAX package's: the
 headers (generated tables among them) byte for byte, the C++ sources in
-every byte outside their comments."""
+every byte outside their comments; and so is the generated
+codec/h264/cabac_tables.py, byte for byte."""
 
 import ast
 import glob
@@ -43,8 +44,19 @@ def test_port_has_its_host_modules():
                  "codec/hevc/params.py", "codec/hevc/slicehdr.py",
                  "codec/hevc/plan.py", "codec/hevc/transform.py",
                  "codec/hevc/intra.py", "codec/hevc/inter.py",
-                 "codec/hevc/refdec.py", "native/__init__.py"):
+                 "codec/hevc/refdec.py", "native/__init__.py",
+                 "api/session.py", "utils/metrics.py", "codec/h264/cavlc.py",
+                 "codec/h264/cabac.py", "codec/h264/cabac_tables.py",
+                 "codec/h264/inter.py", "codec/h264/refdec.py",
+                 "codec/h264/macroblock.py", "ops/mc.py"):
         assert os.path.join("jmcodec_tpu_torch", want) in have, want
+
+
+def test_generated_cabac_tables_equal_the_jax_packages():
+    path = os.path.join("codec", "h264", "cabac_tables.py")
+    ours, theirs = (open(os.path.join(ROOT, pkg, path), "rb").read()
+                    for pkg in ("jmcodec_tpu_torch", "jmcodec_tpu"))
+    assert ours == theirs
 
 
 @pytest.mark.parametrize("path", _port_files())
