@@ -12,7 +12,9 @@ H.264 P stream decode (an IDR and four P pictures; decode_h264: native
 parse, device DPB, quarter-pel MC with explicit weights, the intra scan
 over the MC tiles, the per-edge-bS deblock scan); then the streaming
 DecoderSession, the user's entry point, over both codecs' device paths
-and the H.264 host fallback with its DPB mirror. Every kernel launch
+and the H.264 host fallback with its DPB mirror, and the HEVC host parse
+and recon (the Python parse into the device's plans, the numpy decode of
+the pictures outside the device's scope). Every kernel launch
 count is set to 0 just before a path is driven and read just after.
 Phases, one line each; any failure raises and the exit code is
 non-zero:
@@ -88,12 +90,25 @@ non-zero:
      picture that parses is decoded on the device, and every trial gives
      the frames and counts of the same session on the CPU (which the CPU
      tests hold to jmcodec_tpu's)
+ 16. the HEVC host parse at 1080p: DecoderSession() fed the cu_qp_delta
+     fixture (an I and two P pictures, QP varying from cell to cell) in
+     1 MiB chunks; the native parser refuses cu_qp_delta, so every
+     picture is parsed in Python (plans_python) and decoded on the device
+     (frames_device), the walk kernel launched once per scan step that
+     holds a TU, all 9 planes equal to the libavcodec digests; end-to-end
+     fps and the stage timers per picture (host_parse: the Python parse;
+     device_recon: the host's issue of the device decode)
+ 17. the small HEVC host-route fixtures through DecoderSession() (cu_qp_
+     delta I, P and B; two slices a picture; transform skip; motion past
+     the MC pad; five references): every plane equal to its digest, as
+     many pictures on the device (frames_device) and on the host
+     (frames_host) as the CPU tests assert
 
-With --only hevc, --only h264, --only hevc_inter, --only h264_inter or
---only session just that path is driven (phase 3 with either HEVC path,
-phase 6 with either H.264 path, both with the session; for work on one
-kernel or path, the run then prints no kernels' record that is
-complete).
+With --only hevc, --only h264, --only hevc_inter, --only h264_inter,
+--only session or --only hevc_host just that path is driven (phase 3 with
+either HEVC path, the session and the host route, phase 6 with either
+H.264 path and the session; for work on one kernel or path, the run then
+prints no kernels' record that is complete).
 
 Each kernel's record also carries the least time the card could take for
 its launch (bound_ms): the larger of its bytes (each input read once, each
@@ -139,13 +154,16 @@ from jmcodec_tpu_torch.kernels import idct as ID
 from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
 from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
-                                              FIXTURE, H264_BATCH,
+                                              CUQP_DIGESTS, FIXTURE,
+                                              H264_BATCH,
                                               H264_DIGESTS,
                                               H264_INTER_DIGESTS,
                                               H264_SESSION_PICTURES,
+                                              HEVC_HOST_FIXTURES,
                                               INTER_DIGESTS, INTER_FIXTURE,
                                               P_CORPUS_FIXTURES,
                                               SESSION_FIXTURES,
+                                              cuqp_fixture_stream,
                                               fixture_batch_stream,
                                               fixture_digests,
                                               h264_fixture_batch_stream,
@@ -996,12 +1014,12 @@ def session_small_streams(card):
                       "p_corpus": p_outcomes, "card": card}
 
 
-def session_decode(data, device=None):
-    """data through DecoderSession(device=device): the frames as numpy
-    planes and the session counters' deltas."""
+def session_decode(data, device=None, codec=Codec.H264):
+    """data through DecoderSession(codec, device=device): the frames as
+    numpy planes and the session counters' deltas."""
     keys = ("frames_device", "corrupt_chunks", "unsupported_pictures")
     c0 = counters.snapshot()
-    sess = DecoderSession(device=device)
+    sess = DecoderSession(codec, device=device)
     sess.input_data(data)
     sess.set_eof()
     frames = []
@@ -1035,6 +1053,114 @@ def session_p_corpus(name):
     return outcomes
 
 
+def hevc_cuqp_path(dev, card):
+    """Phase 16. Returns the hevc_walk launches and the figures."""
+    stream = cuqp_fixture_stream()
+    digests = fixture_digests(CUQP_DIGESTS)
+    n = len(digests)
+    plans = []
+    call = DeviceRecon.__call__
+
+    def recording(self, plan, ref_pixels):
+        plans.append(plan)
+        return call(self, plan, ref_pixels)
+
+    DeviceRecon.__call__ = recording
+    try:
+        c0 = counters.snapshot()
+        reset_counts()
+        frames, dt, n_dev, stages = run_session(Codec.HEVC, stream)
+        launches = HW.LAUNCHES
+        c1 = counters.snapshot()
+    finally:
+        DeviceRecon.__call__ = call
+    n_py = int(c1.get("plans_python", 0) - c0.get("plans_python", 0))
+    check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC session")
+    check(n_dev == n == len(plans) and n_py == n,
+          f"hevc cuqp: {n_dev} of {n} pictures on the device, {n_py} "
+          f"parsed in Python")
+    check(all(len(np.unique(p.qp_y)) > 1 for p in plans),
+          "hevc cuqp: a picture with one QP")
+    taken = sum(sum(y) + sum(c) for y, c in map(HTT.walk_steps, plans))
+    check(launches == taken, f"hevc cuqp: {launches} walk launches, "
+                             f"{taken} scan steps with a TU")
+    check_session_frames(frames, digests, dev, "hevc cuqp session")
+    h, w = frames[0][0].shape
+    per_pic = {k: round(v / n, 1) for k, v in stages.items()}
+    say(f"phase 16 [{card}]: HEVC session, cu_qp_delta fixture, {n} "
+        f"pictures {w}x{h} (I + {n - 1} P, luma QP "
+        f"{min(int(p.qp_y.min()) for p in plans)}-"
+        f"{max(int(p.qp_y.max()) for p in plans)}) in 1 MiB chunks: every "
+        f"picture parsed in Python and decoded on the device; {n / dt:.3f} "
+        f"fps end to end ({dt * 1000:.1f} ms), hevc_walk launched "
+        f"{launches} times (once per scan step with a TU); all {3 * n} "
+        f"planes match the libavcodec SHA-256 digests; stage timers per "
+        f"picture (ms; host_parse the Python parse, device_recon the "
+        f"host's issue) {per_pic}")
+    return launches, {"slice": "hevc 1080p cu_qp_delta session",
+                      "pictures": n, "e2e_fps": n / dt,
+                      "wall_ms": dt * 1000, "frames_device": n_dev,
+                      "plans_python": n_py, "walk_launches": launches,
+                      "stages_ms_per_picture": per_pic, "card": card}
+
+
+def hevc_host_streams(card):
+    """Phase 17. Returns the hevc_walk launches and the figures."""
+    reset_counts()
+    paths, t0 = {}, time.perf_counter()
+    plans = []
+    call = DeviceRecon.__call__
+
+    def recording(self, plan, ref_pixels):
+        plans.append(plan)
+        return call(self, plan, ref_pixels)
+
+    DeviceRecon.__call__ = recording
+    try:
+        for name, want in HEVC_HOST_FIXTURES.items():
+            stream, digests = session_fixture(name, ".h265")
+            c0 = counters.get("frames_host")
+            frames, n = session_decode(stream, codec=Codec.HEVC)
+            n_host = int(counters.get("frames_host") - c0)
+            dropped = n["corrupt_chunks"] + n["unsupported_pictures"]
+            check((n["frames_device"], n_host) == want
+                  and len(frames) == sum(want) and not dropped,
+                  f"{name}: {n['frames_device']} pictures on the device, "
+                  f"{n_host} on the host, {len(frames)} in all, {dropped} "
+                  f"dropped; want {want}")
+            check_digests([np.stack([f[k] for f in frames])
+                           for k in range(3)], digests, name)
+            paths[name] = (n["frames_device"], n_host)
+        launches = HW.LAUNCHES
+    finally:
+        DeviceRecon.__call__ = call
+    check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC session")
+    taken = sum(sum(y) + sum(c) for y, c in map(HTT.walk_steps, plans))
+    check(launches == taken and launches > 0,
+          f"host-route fixtures: {launches} walk launches, {taken} scan "
+          f"steps with a TU in the plans the card took")
+    dt = time.perf_counter() - t0
+    say(f"phase 17 [{card}]: HEVC host-route fixtures (pictures on the "
+        f"device, on the host) {paths}, as the CPU tests assert; every "
+        f"plane matches its libavcodec digest; hevc_walk launched "
+        f"{launches} times (once per scan step with a TU); {dt:.1f} s")
+    return launches, {"slice": "hevc host-route small streams",
+                      "paths": paths, "walk_launches": launches,
+                      "wall_s": dt, "card": card}
+
+
+def hevc_host_path(dev, card, walk_rec):
+    """Phases 16-17: add their launches to the hevc_walk record."""
+    launches_16, fig16 = hevc_cuqp_path(dev, card)
+    say(json.dumps(fig16))
+    torch.cuda.empty_cache()
+    launches_17, fig17 = hevc_host_streams(card)
+    say(json.dumps(fig17))
+    if walk_rec is not None:
+        walk_rec["launches_hevc_host"] = launches_16 + launches_17
+        walk_rec["launches"] += launches_16 + launches_17
+
+
 def session_path(dev, card, walk_rec, idct_rec):
     """Phases 13-15: add the session's launches to the kernels' records."""
     idct_13, fig13 = session_h264_path(dev, card)
@@ -1055,7 +1181,8 @@ def session_path(dev, card, walk_rec, idct_rec):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter",
-                                       "h264_inter", "session"),
+                                       "h264_inter", "session",
+                                       "hevc_host"),
                     help="drive one path only (no complete kernels' record)")
     only = ap.parse_args().only
     t_start = time.perf_counter()
@@ -1074,7 +1201,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
 
     walk_rec, idct_rec = None, None
-    if only in (None, "hevc", "hevc_inter", "session"):
+    if only in (None, "hevc", "hevc_inter", "session", "hevc_host"):
         walk_err = check_walk_shapes(dev)
     if only in (None, "hevc"):
         walk_rec, fig = hevc_path(dev, card, walk_err)
@@ -1096,6 +1223,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if only in (None, "session"):
         session_path(dev, card, walk_rec, idct_rec)
+        torch.cuda.empty_cache()
+    if only in (None, "hevc_host"):
+        hevc_host_path(dev, card, walk_rec)
     recs = [r for r in (walk_rec, idct_rec) if r is not None]
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"kernels' build included")

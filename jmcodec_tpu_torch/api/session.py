@@ -19,9 +19,14 @@ whose DPB is primed with the device-decoded references first (the
 mirror). A picture that fails to parse or decode as corrupt is dropped
 and counted; the stream resyncs at the next picture.
 
-HEVC: every picture goes through HevcRefDecoder with DeviceRecon. The host
-decode path is not ported: a picture outside the device path raises
-NotImplementedError naming its reason, out of input_data or set_eof.
+HEVC: every picture goes through HevcRefDecoder with DeviceRecon: parsed
+natively or, outside the native parser's scope (cu_qp_delta, transform
+skip, ...), in Python, and reconstructed on the device; a plan outside the
+device's scope (a multi-slice or transform-skip picture, motion past the
+MC pad, more than four references) is decoded on the host in numpy. With
+use_device=False every picture is decoded on the host. A picture the host
+decoder does not support (PCM, transquant bypass, tiles, not 4:2:0 8-bit)
+is dropped and counted, as a corrupt one is.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import enum
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -79,6 +85,17 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+@contextmanager
+def _dropping_unsupported(pic: bytes):
+    """A NotImplementedError of a host decode drops the picture, counted."""
+    try:
+        yield
+    except NotImplementedError as e:
+        counters.add("unsupported_pictures")
+        logger.warning("dropping unsupported picture (%d bytes): %s",
+                       len(pic), e)
+
+
 class _FpsMeter:
     """Frames and bytes taken, and the frame rate since the first frame."""
 
@@ -103,11 +120,10 @@ class DecoderSession:
     """Streaming decoder: bytes in (with backpressure), YUV out in display
     order, EOF drain.
 
-    use_device=False decodes H.264 on the host only (HEVC has no host path
-    and raises). device: where the device path runs (None: the card, which
-    must be there; the tests pass "cpu"). A native parser that fails to
-    build raises here: the session never routes a stream off the device
-    path for that."""
+    use_device=False decodes on the host only, either codec. device: where
+    the device path runs (None: the card, which must be there; the tests
+    pass "cpu"). A native parser that fails to build raises here: the
+    session never routes a stream off the device path for that."""
 
     def __init__(self, codec: Codec = Codec.H264,
                  out_fmt: PixFmt = PixFmt.I420, use_device: bool = True,
@@ -126,9 +142,6 @@ class DecoderSession:
         if use_device:
             self._device = (require_cuda() if device is None
                             else torch.device(device))
-        elif codec == Codec.HEVC:
-            raise NotImplementedError("HEVC without the device: the host "
-                                      "decode path is not ported")
         self._parser = None
         self._refdec = None
         # picture decoded on the host since the last IDR: the device DPB
@@ -314,13 +327,14 @@ class DecoderSession:
     def _decode_picture(self, pic: bytes) -> None:
         """Decode one picture's bytes (leading SPS/PPS/SEI included): on the
         device path when its scope tests take the picture, else on the
-        host. A corrupt picture is dropped and counted; an H.264 picture
-        that the host decoder does not support too. An HEVC picture outside
-        the device path raises, and so does any NotImplementedError of the
-        device decode itself: only the scope tests route a picture."""
+        host. A corrupt picture is dropped and counted; a picture that the
+        host decoder does not support too. Any error of the device decode
+        itself propagates: only the scope tests route a picture."""
         try:
             if self.codec == Codec.HEVC:
-                self._decode_picture_hevc(pic)
+                # the device_recon hook raises no NotImplementedError
+                with _dropping_unsupported(pic):
+                    self._decode_picture_hevc(pic)
                 return
             pics = self._device_pictures(pic)
             if pics is not None:
@@ -329,12 +343,8 @@ class DecoderSession:
             # the device DPB does not get host-decoded pictures: park the
             # device inter path until the next IDR re-anchors it
             self._fast_dirty = True
-            try:
+            with _dropping_unsupported(pic):
                 self._decode_picture_host(pic)
-            except NotImplementedError as e:
-                counters.add("unsupported_pictures")
-                logger.warning("dropping unsupported picture (%d bytes): %s",
-                               len(pic), e)
         except (ValueError, EOFError, KeyError, IndexError) as e:
             # corrupt bitstream: drop the broken picture and resync at the
             # next one that decodes
@@ -430,22 +440,32 @@ class DecoderSession:
 
     def _hevc_device_recon(self):
         """The device_recon hook of HevcRefDecoder: DeviceRecon, counted
-        and timed (the host's issue of the launches)."""
+        and timed (the host's issue of the launches). Its errors leave the
+        session as RuntimeError: the session's containment must not take
+        them for a fault of the stream."""
         recon = DeviceRecon(self._device)
 
         def device_recon(plan, ref_pixels):
-            with timers.stage("device_recon"):
-                planes = recon(plan, ref_pixels)
+            try:
+                with timers.stage("device_recon"):
+                    planes = recon(plan, ref_pixels)
+            except (NotImplementedError, ValueError, EOFError, KeyError,
+                    IndexError) as e:
+                raise RuntimeError(
+                    f"HEVC device decode of POC {plan.poc} failed: "
+                    f"{type(e).__name__}: {e}") from e
             counters.add("frames_device")
             return planes
 
         return device_recon
 
     def _decode_picture_hevc(self, pic: bytes) -> None:
-        """HEVC: native parse on the host, reconstruction on the device; one
-        DPB/POC/reorder machinery for the stream."""
+        """HEVC: the parse on the host, the reconstruction on the device or
+        the host as HevcRefDecoder routes it (on the host only without the
+        device); one DPB/POC/reorder machinery for the stream."""
         if self._refdec is None:
-            self._refdec = HevcRefDecoder(self._hevc_device_recon())
+            self._refdec = HevcRefDecoder(
+                self._hevc_device_recon() if self._use_device else None)
         dec = self._refdec
         if not dec.sps and self._hdr_cache:
             pic = b"".join(self._hdr_cache.get(t, b"")

@@ -1,6 +1,7 @@
 """Inputs for checks and timings of the port: the committed 1080p HEVC and
 H.264 all-intra fixtures at the smoke's batches, the 1080p HEVC and H.264
-inter fixtures, the small session fixtures and the bit-flip corpus,
+inter fixtures, the 1080p HEVC cu_qp_delta fixture, the small session and
+HEVC host-route fixtures and the bit-flip corpus,
 seeded synthetic inputs for holding each kernel against its plain version,
 and copies of reference objects into the port's own types."""
 
@@ -29,6 +30,9 @@ H264_INTER_FIXTURE = os.path.join(ROOT, "tests", "data",
                                   "h264_1080p_inter.h264")
 H264_INTER_DIGESTS = os.path.join(ROOT, "tests", "data",
                                   "h264_1080p_inter.sha256.json")
+CUQP_FIXTURE = os.path.join(ROOT, "tests", "data", "hevc_1080p_cuqp.h265")
+CUQP_DIGESTS = os.path.join(ROOT, "tests", "data",
+                            "hevc_1080p_cuqp.sha256.json")
 # frames per decode batch, as bench.py's 1080p figures decode them
 BATCH = 16
 H264_BATCH = 32
@@ -87,6 +91,26 @@ def inter_fixture_stream() -> bytes:
         return f.read()
 
 
+def cuqp_fixture_stream() -> bytes:
+    """The 1080p HEVC fixture with cu_qp_delta: an I and two P pictures
+    (x265 ABR with adaptive quantisation, CTU 64, luma QP 35-48 from cell
+    to cell; every |MV| within the plan's 56 px gate). The native parser
+    refuses cu_qp_delta, so every picture is parsed in Python and
+    reconstructed on the device. Its libavcodec digests are in
+    CUQP_DIGESTS. Made with tests/util_oracle.py from the first three
+    frames of inter_fixture_stream's content:
+
+        oracle_encode(frames, 1920, 1080, qp=30, codec="libx265", gop=20,
+                      extra="bitrate=3000:vbv-maxrate=3000:"
+                            "vbv-bufsize=6000:aq-mode=2:bframes=0:"
+                            "merange=16")
+
+    (tests/test_torch_hevc_host.py holds the recipe as code and rebuilds
+    it.)"""
+    with open(CUQP_FIXTURE, "rb") as f:
+        return f.read()
+
+
 def h264_inter_fixture_stream() -> bytes:
     """The 1080p H.264 P fixture: an IDR picture and four P pictures
     (x264, CABAC, main profile, ref=3 with weightp=2: explicit weights and
@@ -124,12 +148,54 @@ P_CORPUS_FIXTURES = {"h264_inter_slices3_96x64": {0, 1, 2, 3, 6},
                      "h264_inter_veryslow_96x64": {4, 6}}
 # pictures of the 1080p H.264 P fixture that the session phase decodes
 H264_SESSION_PICTURES = 3
+# the small HEVC fixtures of the host route under tests/data -> (pictures
+# HevcRefDecoder with DeviceRecon decodes on the device, on the host), as
+# jmcodec_tpu routes them. Each was made with tests/util_oracle.py's
+# oracle_encode (x265, qp 30), from make_frame content; each has a
+# .sha256.json of its libavcodec decode (tests/test_torch_hevc_host.py
+# holds the recipes as code and rebuilds them):
+#   hevc_cuqp_intra_192x128  make_frame(192, 128, seed=i), i < 3, gop 1,
+#       "bitrate=300:aq-mode=2:vbv-bufsize=600:vbv-maxrate=300": cu_qp_delta
+#       I pictures, parsed in Python, on the device
+#   hevc_cuqp_p_64x64        make_frame(64, 64, seed=3), luma rolled 2i px,
+#       i < 3, gop 3, CUQP (below): I + 2 P
+#   hevc_cuqp_b_64x64        moving(64, 64, 6, seed=4), gop 20,
+#       CUQP + ":bframes=3": B slices through the Python merge/TMVP/AMVP
+#   hevc_slices2_96x128      moving(96, 128, 3, seed=6), gop 20,
+#       "slices=2:ctu=32": two slices a picture, I and P, on the host
+#   hevc_tskip_128x96        one 128x96 picture of 0/255 luma
+#       (default_rng(1)), chroma 128, three times, gop 3, "tskip=1:ctu=16":
+#       the transform-skip I picture on the host, the two P pictures
+#       without one on the device against its numpy planes
+#   hevc_tskip_2gop_128x96   that stream's content, then the same from
+#       default_rng(2), gop 3, "tskip=1:ctu=16:open-gop=0": two GOPs, each
+#       an IDR on the host (POC 0 both times) and two P pictures on the
+#       device, the second GOP's against its own IDR's planes
+#   hevc_far_mv_128x64       uniform noise (default_rng(11)) panned 64 px
+#       a picture, 3 pictures, gop 3, "merange=100:ctu=32:me=full": the I
+#       on the device, the P pictures (motion past the 56 px gate) on the
+#       host against its device planes
+#   hevc_ref5_64x64          moving(64, 64, 10, seed=2), gop 30,
+#       "ref=5:bframes=3": the B pictures with five unique references
+#       on the host
+# with CUQP = "bitrate=150:aq-mode=2:vbv-bufsize=300:vbv-maxrate=150:ctu=32"
+# and moving(W, H, n, seed) the pan of make_frame(2W, 2H, seed) by (3i, 2i)
+# px (chroma by (3i//2, i)).
+HEVC_HOST_FIXTURES = {"hevc_cuqp_intra_192x128": (3, 0),
+                      "hevc_cuqp_p_64x64": (3, 0),
+                      "hevc_cuqp_b_64x64": (6, 0),
+                      "hevc_slices2_96x128": (0, 3),
+                      "hevc_tskip_128x96": (2, 1),
+                      "hevc_tskip_2gop_128x96": (4, 2),
+                      "hevc_far_mv_128x64": (1, 2),
+                      "hevc_ref5_64x64": (8, 2)}
 
 
-def session_fixture(name: str) -> tuple[bytes, list[dict]]:
-    """A session fixture's stream and its libavcodec digests."""
+def session_fixture(name: str, ext: str = ".h264") -> tuple[bytes,
+                                                           list[dict]]:
+    """A fixture's stream and its libavcodec digests."""
     path = os.path.join(ROOT, "tests", "data", name)
-    with open(path + ".h264", "rb") as f:
+    with open(path + ext, "rb") as f:
         stream = f.read()
     return stream, fixture_digests(path + ".sha256.json")
 

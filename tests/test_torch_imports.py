@@ -2,8 +2,9 @@
 imports jax or jmcodec_tpu; every module of the port imports with both
 names blocked; and the native parser's sources are the JAX package's: the
 headers (generated tables among them) byte for byte, the C++ sources in
-every byte outside their comments; and so is the generated
-codec/h264/cabac_tables.py, byte for byte."""
+every byte outside their comments; and so are the generated
+codec/h264/cabac_tables.py and codec/hevc/cabac_tables.py, byte for
+byte."""
 
 import ast
 import glob
@@ -48,12 +49,20 @@ def test_port_has_its_host_modules():
                  "api/session.py", "utils/metrics.py", "codec/h264/cavlc.py",
                  "codec/h264/cabac.py", "codec/h264/cabac_tables.py",
                  "codec/h264/inter.py", "codec/h264/refdec.py",
-                 "codec/h264/macroblock.py", "ops/mc.py"):
+                 "codec/h264/macroblock.py", "ops/mc.py",
+                 "codec/hevc/cabac.py", "codec/hevc/cabac_tables.py"):
         assert os.path.join("jmcodec_tpu_torch", want) in have, want
 
 
 def test_generated_cabac_tables_equal_the_jax_packages():
     path = os.path.join("codec", "h264", "cabac_tables.py")
+    ours, theirs = (open(os.path.join(ROOT, pkg, path), "rb").read()
+                    for pkg in ("jmcodec_tpu_torch", "jmcodec_tpu"))
+    assert ours == theirs
+
+
+def test_generated_hevc_cabac_tables_equal_the_jax_packages():
+    path = os.path.join("codec", "hevc", "cabac_tables.py")
     ours, theirs = (open(os.path.join(ROOT, pkg, path), "rb").read()
                     for pkg in ("jmcodec_tpu_torch", "jmcodec_tpu"))
     assert ours == theirs

@@ -14,9 +14,10 @@
   backpressure at INPUT_BUF_SIZE, the output formats and the callback,
   get_frame_device, an error of the device decode propagating (not routed
   to the host), a long stream of either codec holding no more pictures
-  than its DPB, the HEVC session against libavcodec, an HEVC picture
-  outside the device path raising with its reason, and the constructor
-  raising without a card or with a failed native-parser build.
+  than its DPB, the HEVC session against libavcodec, HEVC pictures
+  outside the device path against jmcodec_tpu's session, and the
+  constructor raising without a card or with a failed native-parser
+  build.
 
 The fixtures' recipes are in tests/test_torch_session_host.py.
 """
@@ -440,21 +441,101 @@ def test_hevc_session_matches_libavcodec():
 
 @pytest.mark.skipif(not have_oracle(), reason="oracle unavailable")
 def test_hevc_picture_outside_the_device_path_raises():
-    """A two-slice picture needs the HEVC host path, which is not ported:
-    the session raises with the reason and drops nothing silently."""
+    """HEVC pictures outside the device path (the test keeps its name from
+    before the host path was ported: nothing raises now) give the frames
+    and counts of jmcodec_tpu's session, which compiles no program for
+    them: x265's two-slice 128x128 pictures at CTU 64, which break the
+    slice syntax (test_x265_two_slice_ctu64_stream_breaks_the_slice_syntax;
+    both sessions drop them as corrupt), and transform-skip I pictures
+    (both decode them on the host, as libavcodec does). The host-only
+    session takes HEVC."""
     w, h = 128, 128
     frames = [make_frame(w, h, seed=i) for i in range(2)]
-    stream = oracle_encode(frames, w, h, qp=30, codec="libx265", gop=1,
+    slices2 = oracle_encode(frames, w, h, qp=30, codec="libx265", gop=1,
+                            extra="slices=2")
+    rng = np.random.default_rng(1)
+    frames = [((rng.integers(0, 2, (96, 128)) * 255).astype(np.uint8),
+               np.full((48, 64), 128, np.uint8),
+               np.full((48, 64), 128, np.uint8)) for _ in range(2)]
+    tskip = oracle_encode(frames, 128, 96, qp=32, codec="libx265", gop=1,
+                          extra="tskip=1:ctu=16")
+    for stream, n_want, corrupt in ((slices2, 0, 2), (tskip, 2, 0)):
+        got, n = _drive(DecoderSession(Codec.HEVC, device="cpu"), counters,
+                        stream)
+        want, wn = _drive(JaxSession(Codec.HEVC), jax_counters, stream)
+        _assert_same(got, want)
+        assert n == wn == {"frames_device": 0, "corrupt_chunks": corrupt,
+                           "unsupported_pictures": 0}
+        assert len(got) == n_want
+    _assert_same(got, oracle_decode(tskip, suffix=".h265")[0])
+    got, n = _drive(DecoderSession(Codec.HEVC, use_device=False), counters,
+                    tskip)
+    _assert_same(got, want)
+
+
+@pytest.mark.skipif(not have_oracle(), reason="oracle unavailable")
+def test_x265_two_slice_ctu64_stream_breaks_the_slice_syntax(monkeypatch):
+    """Why the two-slice 128x128 CTU-64 stream above is dropped: x265 puts
+    the data of the whole picture into the first slice segment (its
+    second one starts at CTB 2 and holds no slice data), and no
+    end_of_slice_segment_flag of the first is 1, neither after CTB 1,
+    before the second segment's address, nor after the picture's last
+    CTB. The port stops with the slice overrunning the picture.
+    libavcodec's frames for it are no decode of the source: it stops at
+    the picture's end without the flag, and its bottom CTB row is noise
+    against the source, where the top row is within the encoder's loss."""
+    from jmcodec_tpu_torch.codec.hevc import refdec as RD
+    from jmcodec_tpu_torch.codec.hevc.cabac import HevcCabac
+
+    w, h = 128, 128
+    src = [make_frame(w, h, seed=i) for i in range(2)]
+    stream = oracle_encode(src, w, h, qp=30, codec="libx265", gop=1,
                            extra="slices=2")
-    before = counters.snapshot()
-    s = DecoderSession(Codec.HEVC, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-slice picture"):
-        s.input_data(stream)
-        s.set_eof()
-    for k in KEYS:
-        assert counters.get(k) == before.get(k, 0), k
-    with pytest.raises(NotImplementedError, match="host decode path"):
-        DecoderSession(Codec.HEVC, use_device=False)
+    events = []
+    terminate = HevcCabac.terminate
+    decode_ctu = RD._Picture.decode_ctu
+    decode_slice = RD.HevcRefDecoder._decode_slice
+
+    def end_flag(self):
+        events.append(("end", terminate(self)))
+        return events[-1][1]
+
+    def ctu(self, c, xc, yc):
+        events.append(("ctb", yc * self.ctb_w + xc))
+        return decode_ctu(self, c, xc, yc)
+
+    def slice_(self, pic, hdr, rbsp, emu):
+        """the segment's address and bytes of slice data; an overrun
+        ends the segment, so that the next one is read too"""
+        events.append(("segment", hdr.segment_address,
+                       len(rbsp) - hdr.data_bitpos // 8))
+        try:
+            decode_slice(self, pic, hdr, rbsp, emu)
+        except ValueError as e:
+            events.append(("error", str(e)))
+            pic.cur_slice += 1
+
+    monkeypatch.setattr(HevcCabac, "terminate", end_flag)
+    monkeypatch.setattr(RD._Picture, "decode_ctu", ctu)
+    with pytest.raises(ValueError, match="overruns"):
+        RD.HevcRefDecoder().decode(stream)
+    assert events == [("ctb", 0), ("end", 0), ("ctb", 1), ("end", 0),
+                      ("ctb", 2), ("end", 0), ("ctb", 3), ("end", 0)]
+    events.clear()
+    monkeypatch.setattr(RD.HevcRefDecoder, "_decode_slice", slice_)
+    RD.HevcRefDecoder().decode(stream)
+    assert [(e[1], e[2] > 0) for e in events if e[0] == "segment"] == \
+        [(0, True), (2, False)] * 2
+
+    def psnr(a, b):
+        mse = np.mean((a.astype(np.float64) - b) ** 2)
+        return 10 * np.log10(255 ** 2 / mse)
+
+    want, _, _ = oracle_decode(stream, suffix=".h265")
+    assert len(want) == 2
+    for (y, _, _), (sy, _, _) in zip(want, src):
+        assert psnr(y[:64], sy[:64]) > 30
+        assert psnr(y[64:], sy[64:]) < 15
 
 
 def test_session_needs_a_card():
