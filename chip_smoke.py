@@ -14,7 +14,10 @@ over the MC tiles, the per-edge-bS deblock scan); then the streaming
 DecoderSession, the user's entry point, over both codecs' device paths
 and the H.264 host fallback with its DPB mirror, and the HEVC host parse
 and recon (the Python parse into the device's plans, the numpy decode of
-the pictures outside the device's scope). Every kernel launch
+the pictures outside the device's scope); then the EncoderSession, the
+encoder's entry point, with the H.264 device engine (the host IDR, the P
+frames' motion search, transform and quantisation on the card, the host
+CAVLC pack, the reconstruction through the P decode). Every kernel launch
 count is set to 0 just before a path is driven and read just after.
 Phases, one line each; any failure raises and the exit code is
 non-zero:
@@ -61,10 +64,11 @@ non-zero:
      dequant_idct kernel launched twice per picture, all 15 planes equal
      to the committed libavcodec SHA-256 digests; per picture the intra
      scan's diagonals walked and skipped
- 12. timing of the H.264 P path (one run each, REPS_H264_P; phase 11's
-     decode is the warm-up): end-to-end fps (native parse + device
-     decode, picture by picture); device-only fps (the parsed symbols
-     replayed through decode_symbols), with the time at which the host had
+ 12. timing of the H.264 P path over the IDR and the first two P
+     pictures (one run each, REPS_H264_P; phase 11's decode is the
+     warm-up): end-to-end fps (native parse + device decode, picture by
+     picture); device-only fps (the parsed symbols replayed through
+     decode_symbols), with the time at which the host had
      issued the last launch; the kernel launches of the first P picture
      (one decode under torch.profiler); and the dequant_idct kernel
      against dequant_idct_reference at the P picture's two shapes
@@ -104,11 +108,34 @@ non-zero:
      many pictures on the device (frames_device) and on the host
      (frames_host) as the CPU tests assert
 
+ 18. the encoder at 1080p: EncoderSession(EncoderParams()) (1080p30, 2
+     Mb/s VBR, GOP 30, engine auto: the device encoder on the card) fed
+     the three frames of tools/fixtures.encode_fixture_frames as I420
+     bytes: the reference planes on the card, the stream's SHA-256 and
+     keyframe flags equal to the committed fixture's (jmcodec_tpu's
+     stream), the port's decode_h264 of it on the card equal to the
+     libavcodec digests and to the encoder's recon_cropped(), plane by
+     plane, dequant_idct launched twice a P frame and equal to
+     dequant_idct_reference at the P frame's shapes; per frame the wall
+     and the stage timers (enc_idr: the host IDR; enc_search, enc_pull,
+     enc_pack: the host pack, also in ms a macroblock; enc_recon: the
+     recon's issue) and the steady-state P rate (frame 2, as bench.py's
+     bench_encode takes it); the search and transform alone
+     (synchronised) and its pull alone; one more P frame with a
+     synchronise around each recon stage (the deblock scan's share), then
+     one under torch.profiler: its kernel launches and the device's busy
+     time
+ 19. the small encoder sessions of tools/fixtures.ENCODE_SESSIONS (rate
+     control, GOPs crossing an IDR) on the card against the same sessions
+     on the CPU: the same packets and keyframe flags, dequant_idct launched
+     twice a P frame
+
 With --only hevc, --only h264, --only hevc_inter, --only h264_inter,
---only session or --only hevc_host just that path is driven (phase 3 with
-either HEVC path, the session and the host route, phase 6 with either
-H.264 path and the session; for work on one kernel or path, the run then
-prints no kernels' record that is complete).
+--only session, --only hevc_host or --only encode just that path is
+driven (phase 3 with either HEVC path, the session and the host route,
+phase 6 with either H.264 path, the session and the encoder; for work on
+one kernel or path, the run then prints no kernels' record that is
+complete).
 
 Each kernel's record also carries the least time the card could take for
 its launch (bound_ms): the larger of its bytes (each input read once, each
@@ -144,9 +171,13 @@ from jmcodec_tpu_torch.api.h264_intra import parse_h264_intra_symbols
 from jmcodec_tpu_torch.api.hevc_inter import (DeviceRecon, decode_hevc,
                                               decode_plans)
 from jmcodec_tpu_torch.api.hevc_intra import parse_hevc_intra_plans
-from jmcodec_tpu_torch.api.session import Codec, DecoderSession
+from jmcodec_tpu_torch.api.session import (Codec, DecoderSession,
+                                           EncoderParams, EncoderSession,
+                                           PixFmt)
+from jmcodec_tpu_torch.codec.h264.devenc import DeviceH264Encoder
 from jmcodec_tpu_torch.codec.hevc.refdec import HevcRefDecoder
 from jmcodec_tpu_torch.kernels import _build
+from jmcodec_tpu_torch.kernels import encode_tiles as ET
 from jmcodec_tpu_torch.kernels import hevc_tables as HT
 from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
@@ -154,7 +185,8 @@ from jmcodec_tpu_torch.kernels import idct as ID
 from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
 from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
-                                              CUQP_DIGESTS, FIXTURE,
+                                              CUQP_DIGESTS,
+                                              ENCODE_SESSIONS, FIXTURE,
                                               H264_BATCH,
                                               H264_DIGESTS,
                                               H264_INTER_DIGESTS,
@@ -164,18 +196,22 @@ from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
                                               P_CORPUS_FIXTURES,
                                               SESSION_FIXTURES,
                                               cuqp_fixture_stream,
+                                              encode_fixture,
+                                              encode_fixture_frames,
                                               fixture_batch_stream,
                                               fixture_digests,
                                               h264_fixture_batch_stream,
                                               h264_inter_fixture_stream,
                                               h264_session_stream,
                                               inter_fixture_stream,
+                                              pan_frames,
                                               session_corpus,
                                               session_fixture,
                                               synth_idct_blocks, synth_state,
                                               synth_state_hard,
                                               synth_state_inter)
-from jmcodec_tpu_torch.tools.profiling import raw_events
+from jmcodec_tpu_torch.tools.profile_h264_intra import _staged
+from jmcodec_tpu_torch.tools.profiling import raw_events, union_us
 from jmcodec_tpu_torch.utils.device import (gpu_name_power, gpu_sm_clock_mhz,
                                             require_cuda)
 from jmcodec_tpu_torch.utils.metrics import counters, logger, timers
@@ -183,7 +219,9 @@ from jmcodec_tpu_torch.utils.metrics import counters, logger, timers
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = 3
 # runs of each phase 12 timing: a 1080p P picture takes ~10 s, so its median
-# of 3 would take most of the time limit
+# of 3 would take most of the time limit (and phase 12 times the first
+# three pictures of the fixture, not all five, to leave the encoder's
+# phase 18 room)
 REPS_H264_P = 1
 # published peaks of one H100 SXM: HBM bytes/s, and int32 ALU operations/s
 # (the data sheet's 67 TFLOP/s of float32 counts an FMA as two on 128 lanes
@@ -656,13 +694,20 @@ def h264_path(dev, card, err):
     return rec, figures
 
 
-def kernel_launches(fn):
-    """CUDA kernel events of one fn() run under torch.profiler."""
+def kernel_busy(fn):
+    """(CUDA kernel events, the device's busy ms: the union of their
+    intervals) of one fn() run under torch.profiler."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in raw_events(prof) if e[1] == DeviceType.CUDA)
+    kernels = [e[2:] for e in raw_events(prof) if e[1] == DeviceType.CUDA]
+    return len(kernels), union_us(kernels) / 1e3
+
+
+def kernel_launches(fn):
+    """CUDA kernel events of one fn() run under torch.profiler."""
+    return kernel_busy(fn)[0]
 
 
 def hevc_inter_path(dev, card, walk_rec, err):
@@ -828,9 +873,11 @@ def h264_inter_path(dev, card, idct_rec, err):
         f"all {3 * n} planes match the libavcodec SHA-256 digests")
     del frames
 
-    # ---- phase 12: timing ----
-    t_e2e, _ = sync_time(lambda: decode_h264(stream, dev), REPS_H264_P)
-    t_dev, t_issued = sync_time(lambda: decode_symbols(pics, dev),
+    # ---- phase 12: timing, over the IDR and the first two P pictures ----
+    n = H264_SESSION_PICTURES
+    t_e2e, _ = sync_time(lambda: decode_h264(h264_session_stream(), dev),
+                         REPS_H264_P)
+    t_dev, t_issued = sync_time(lambda: decode_symbols(pics[:n], dev),
                                 REPS_H264_P)
     dpb = DeviceDPB()
     decode_symbols(pics[:1], dev, dpb=dpb)
@@ -1178,11 +1225,226 @@ def session_path(dev, card, walk_rec, idct_rec):
             rec["launches"] += n
 
 
+ENC_STAGES = ("enc_idr", "enc_search", "enc_pull", "enc_pack", "enc_recon")
+
+
+def drain_packets(sess, packets):
+    while (p := sess.output_bitstream()) is not None:
+        packets.append(p)
+
+
+def staged_p_frame(enc, frame, qp, stages):
+    """One more P frame through enc (after the stream is done) with a
+    synchronise around each of RT's stages (names): the frame's wall and
+    each stage's."""
+    walls, saved = {}, {n: getattr(RT, n) for n in stages}
+    try:
+        for n in stages:
+            setattr(RT, n, _staged(n, saved[n], walls))
+        t_p, _ = sync_time(lambda: enc.encode_p(*frame, qp=qp), 1)
+    finally:
+        for n in stages:
+            setattr(RT, n, saved[n])
+    return t_p, walls
+
+
+def encode_session_path(dev, card):
+    """Phase 18. Returns the dequant_idct launches, its shapes and error
+    at the P frame's, and the figures."""
+    fx = encode_fixture()
+    frames = encode_fixture_frames()
+    raws = [Y.tobytes() + U.tobytes() + V.tobytes() for Y, U, V in frames]
+    reset_counts()
+    sess = EncoderSession(EncoderParams())
+    enc = sess._enc
+    check(isinstance(enc, DeviceH264Encoder) and enc.device == dev,
+          f"engine {type(enc).__name__}, not the device encoder on the card")
+    packets, per_frame, recons = [], [], []
+    for i, raw in enumerate(raws):
+        s0, n0 = timers.snapshot(), ID.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.encode_frame(raw, PixFmt.I420)
+        drain_packets(sess, packets)
+        t_ret = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        s1 = timers.snapshot()
+        st = {k: (s1.get(k, 0) - s0.get(k, 0)) * 1000 for k in ENC_STAGES
+              if s1.get(k, 0) > s0.get(k, 0)}
+        check(all(p.device == dev and p.dtype == torch.int32
+                  for p in enc._dev_ref), f"frame {i}: reference planes "
+                                          f"not on the card")
+        per_frame.append({"frame": i, "wall_ms": t_all * 1000,
+                          "returned_ms": t_ret * 1000, "stages_ms": st,
+                          "dequant_idct_launches": ID.LAUNCHES - n0})
+        recons.append(enc.recon_cropped())
+    sess.set_eof()
+    drain_packets(sess, packets)
+    launches = ID.LAUNCHES
+    check(HW.LAUNCHES == 0, "hevc_walk launched by the encoder")
+    n_p = sum(1 for _, k in packets if not k)
+    check(launches == 2 * n_p and all(
+        f["dequant_idct_launches"] == (2 if f["frame"] else 0)
+        for f in per_frame), f"{launches} dequant_idct launches for "
+                             f"{n_p} P frames, want 2 each")
+    stream = b"".join(b for b, _ in packets)
+    sha = hashlib.sha256(stream).hexdigest()
+    check({"sha256": sha, "length": len(stream)} == fx["stream"],
+          f"stream {sha} ({len(stream)} bytes) is not the fixture's "
+          f"{fx['stream']}")
+    check([k for _, k in packets] == fx["keyframes"],
+          f"keyframe flags {[k for _, k in packets]}")
+    mbs = enc.mbw * enc.mbh
+
+    # the stream through the port's decoder on the card
+    decoded = decode_h264(stream, dev)
+    torch.cuda.synchronize()
+    check_digests([torch.stack([f[k] for f in decoded]) for k in range(3)],
+                  fx["frames"], "encoded stream")
+    for i, (f, r) in enumerate(zip(decoded, recons)):
+        for k in range(3):
+            check(np.array_equal(f[k].cpu().numpy(), r[k]),
+                  f"frame {i} {'YUV'[k]}: decode != the encoder's recon")
+    del decoded
+
+    # dequant_idct at the P frame's shapes, on its symbols as parsed
+    pics = list(parse_h264(stream))
+    shapes, err = idct_shapes(RC.stack_symbols([pics[-1][0]], dev))
+
+    # the search and transform alone (synchronised) on the last P frame's
+    # source and qp against the current reference, and the copy down alone
+    qp = int(pics[-1][0].qp[0, 0])
+    src = [torch.from_numpy(enc._pad(np.asarray(p, np.int32), c=k > 0))
+           .to(dev) for k, p in enumerate(frames[-1])]
+    qpc = int(ET.T.chroma_qp(qp, enc.pps.chroma_qp_index_offset))
+    lam = max(1, 1 << max(0, (qp - 12) // 6))
+    search = lambda: ET.encode_p_frame(ET.SEARCH_RANGE, *src,
+                                       *enc._dev_ref, qp, qpc, qpc, lam)
+    search()
+    t_search, _ = sync_time(search, REPS)
+    out = search()[:4]
+    torch.cuda.synchronize()
+    t_pull, _ = sync_time(lambda: torch.cat(
+        [p.reshape(-1) for p in out]).cpu(), REPS)
+    del out
+
+    # one more P frame: the deblock scan's share (a synchronise around
+    # each recon stage), then its launches under torch.profiler
+    stages = ("_residuals", "_mc_luma_batched", "_mc_chroma_batched",
+              "_bs_planes", "_intra_tile_scan", "_deblock_tile_scan")
+    t_p, walls = staged_p_frame(enc, frames[-1], qp, stages)
+    n_kernels, busy = kernel_busy(lambda: enc.encode_p(*frames[-1], qp=qp))
+    share = walls["_deblock_tile_scan"] / t_p
+    steady = per_frame[2]["wall_ms"]
+    say(f"phase 18 [{card}]: EncoderSession(EncoderParams()) on the card, "
+        f"{len(frames)} frames {enc.cfg.width}x{enc.cfg.height} I420 "
+        f"(1080p30, 2 Mb/s VBR, GOP 30): stream {len(stream)} bytes = the "
+        f"fixture's SHA-256, keyframes {[k for _, k in packets]}; the "
+        f"port's decode_h264 on the card equals the libavcodec digests and "
+        f"the encoder's recon, plane by plane; dequant_idct launched "
+        f"{launches} times (2 a P frame)")
+    for f in per_frame:
+        st = f["stages_ms"]
+        pack = st.get("enc_pack")
+        say(f"phase 18 [{card}]: frame {f['frame']}: {f['wall_ms']:.1f} ms "
+            f"(returned at {f['returned_ms']:.1f} ms); stages (ms) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in st.items())
+            + (f"; host pack {pack / mbs:.4f} ms a macroblock"
+               if pack else ""))
+    say(f"phase 18 [{card}]: steady-state P (frame 2, as bench_encode "
+        f"takes it) {1000 / steady:.3f} fps; host IDR "
+        f"{per_frame[0]['stages_ms']['enc_idr'] / 1000:.1f} s; search + "
+        f"transform alone {t_search * 1000:.1f} ms (synchronised, median "
+        f"of {REPS}), its pull alone {t_pull * 1000:.2f} ms; a further P "
+        f"frame with a synchronise around each recon stage "
+        f"{t_p * 1000:.1f} ms: " + ", ".join(
+            f"{n} {walls.get(n, 0.0) * 1000:.1f} ms" for n in stages)
+        + f"; deblock scan {100 * share:.1f}% of the frame; under "
+        f"torch.profiler a P frame launches {n_kernels} kernels and keeps "
+        f"the device busy {busy:.1f} ms (the search + transform's "
+        f"{t_search * 1000:.1f} ms of it; the rest the recon's)")
+    say_idct_shapes("phase 18", card, shapes)
+    figures = {"slice": "h264 1080p encode session (device engine)",
+               "frames": len(frames), "bytes": len(stream),
+               "steady_p_fps": 1000 / steady,
+               "idr_host_s": per_frame[0]["stages_ms"]["enc_idr"] / 1000,
+               "per_frame": per_frame, "search_ms": t_search * 1000,
+               "pull_ms": t_pull * 1000,
+               "pack_ms_per_mb": per_frame[2]["stages_ms"]["enc_pack"] / mbs,
+               "staged_p_ms": t_p * 1000,
+               "staged_stage_ms": {n: walls.get(n, 0.0) * 1000
+                                   for n in stages},
+               "deblock_share": share, "p_frame_kernel_launches": n_kernels,
+               "p_frame_device_busy_ms": busy,
+               "dequant_idct_launches": launches, "card": card}
+    return launches, shapes, err, figures
+
+
+def encode_small_sessions(card):
+    """Phase 19. Returns the dequant_idct launches and the figures."""
+    t0, runs, launches = time.perf_counter(), {}, 0
+    for name, (kw, n) in ENCODE_SESSIONS.items():
+        got = []
+        for device in (None, "cpu"):
+            reset_counts()
+            sess = EncoderSession(EncoderParams(**kw), device=device)
+            packets = []
+            for f in pan_frames(kw["width"], kw["height"], n):
+                sess.encode_frame(f)
+                drain_packets(sess, packets)
+            sess.set_eof()
+            drain_packets(sess, packets)
+            got.append(packets)
+            if device is None:
+                torch.cuda.synchronize()
+                launches += ID.LAUNCHES
+        check(got[0] == got[1], f"{name}: the card's packets differ from "
+                                f"the CPU's")
+        keys = [k for _, k in got[0]]
+        check(keys == [i % kw["gop_len"] == 0 for i in range(n)],
+              f"{name}: keyframes {keys}")
+        runs[name] = {"frames": n, "keyframes": keys,
+                      "bytes": sum(len(b) for b, _ in got[0])}
+    want = 2 * sum(sum(not k for k in r["keyframes"]) for r in runs.values())
+    check(launches == want, f"{launches} dequant_idct launches, want {want}")
+    dt = time.perf_counter() - t0
+    say(f"phase 19 [{card}]: small encoder sessions with rate control "
+        f"(GOPs crossing an IDR) {runs}: packets and keyframe flags on the "
+        f"card equal the CPU session's; dequant_idct launched {launches} "
+        f"times (2 a P frame); {dt:.1f} s")
+    return launches, {"slice": "h264 small encode sessions", "runs": runs,
+                      "dequant_idct_launches": launches, "wall_s": dt,
+                      "card": card}
+
+
+def encode_path(dev, card, idct_rec, err):
+    """Phases 18-19 (err: phase 6's). Returns the dequant_idct record
+    (idct_rec with the encoder's launches and shapes added, or a record
+    of this path alone when no decode path was driven)."""
+    launches_18, shapes, e, fig18 = encode_session_path(dev, card)
+    say(json.dumps(fig18))
+    torch.cuda.empty_cache()
+    launches_19, fig19 = encode_small_sessions(card)
+    say(json.dumps(fig19))
+    err = max(err, e)
+    enc = {"launches_encode": launches_18 + launches_19}
+    for key, (_, k_ms, p_ms, bound) in shapes.items():
+        enc.update({f"ms_encode_{key}": k_ms, f"plain_ms_encode_{key}": p_ms,
+                    f"bound_ms_encode_{key}": bound[0]})
+    if idct_rec is None:
+        idct_rec = idct_record(shapes, 0, err)
+    idct_rec.update(enc)
+    idct_rec["launches"] += launches_18 + launches_19
+    idct_rec["max_abs_err"] = max(idct_rec["max_abs_err"], err)
+    return idct_rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter",
                                        "h264_inter", "session",
-                                       "hevc_host"),
+                                       "hevc_host", "encode"),
                     help="drive one path only (no complete kernels' record)")
     only = ap.parse_args().only
     t_start = time.perf_counter()
@@ -1207,7 +1469,7 @@ def main() -> int:
         walk_rec, fig = hevc_path(dev, card, walk_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
-    if only in (None, "h264", "h264_inter", "session"):
+    if only in (None, "h264", "h264_inter", "session", "encode"):
         idct_err = check_idct_kernel(dev)
     if only in (None, "h264"):
         idct_rec, fig = h264_path(dev, card, idct_err)
@@ -1226,6 +1488,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if only in (None, "hevc_host"):
         hevc_host_path(dev, card, walk_rec)
+        torch.cuda.empty_cache()
+    if only in (None, "encode"):
+        idct_rec = encode_path(dev, card, idct_rec, idct_err)
     recs = [r for r in (walk_rec, idct_rec) if r is not None]
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"kernels' build included")

@@ -1,6 +1,7 @@
-"""Streaming decoder session: bytes in with backpressure, frames out in
-display order, the EOF drain. The port's copy of the decoder half of
-jmcodec_tpu's api/session.py, over the port's device paths.
+"""Streaming decoder and encoder sessions: bytes in with backpressure,
+frames out in display order, the EOF drain; frames in, Annex-B packets
+out. The port of jmcodec_tpu's api/session.py, over the port's device
+paths.
 
   DecoderSession(codec, out_fmt)   create a decoder (device=None: the card)
   input_data / need_more_data      feed bytes; 0 accepted when the ring is full
@@ -9,6 +10,11 @@ jmcodec_tpu's api/session.py, over the port's device paths.
   get_frame_device                 pop a frame without copying it to the host
   decode_frame                     feed (None: EOF) and pop one frame
   is_exit / info / get_stream_info / is_hw_support / set_yuv_callback
+
+  EncoderSession(params)           create an encoder (device=None: the card)
+  encode_frame / output_bitstream  feed a frame; pop (packet, is_keyframe)
+  more_data / set_eof / is_exit    backpressure, end of stream (B flush)
+  get_spspps / info                parameter sets, status line
 
 H.264: the native parser turns each picture into FrameSymbols; an I or P
 picture within the device path's scope is decoded on the device (the
@@ -27,11 +33,19 @@ MC pad, more than four references) is decoded on the host in numpy. With
 use_device=False every picture is decoded on the host. A picture the host
 decoder does not support (PCM, transquant bypass, tiles, not 4:2:0 8-bit)
 is dropped and counted, as a corrupt one is.
+
+Encoding: H.264 runs on DeviceH264Encoder (engine "device", which "auto"
+means: the P frames' search, transform and reconstruction on the device,
+the IDR and the CAVLC pack on the host) or on the numpy
+H264ReferenceEncoder (engine "host", and B groups, which the device
+engine does not encode); HEVC on the numpy HevcEncoder. CBR and VBR pick
+each frame's QP with the RateController.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 import time
 from collections import deque
 from contextlib import contextmanager
@@ -493,3 +507,226 @@ class DecoderSession:
             if sc > 0 and chunk[sc - 1] == 0:
                 sc -= 1
             self._hdr_cache[typ] = chunk[sc:e]
+
+
+class EncoderParams:
+    """Defaults-then-override config struct: 1080p30, 2 Mb/s VBR,
+    balanced preset, GOP 30, no B frames."""
+
+    def __init__(self, width=1920, height=1080, fps=30, bitrate_kb=2000,
+                 gop_len=30, num_bframe=0, codec: Codec = Codec.H264,
+                 qp: Optional[int] = None, preset: str = "balanced",
+                 rc_mode: str = "vbr", vbv_buffer_ms: int = 0,
+                 engine: str = "auto"):
+        self.width = width
+        self.height = height
+        self.fps = fps
+        self.bitrate_kb = bitrate_kb
+        self.gop_len = gop_len
+        self.num_bframe = num_bframe
+        self.codec = codec
+        self.qp = qp
+        self.preset = preset
+        # "device": DeviceH264Encoder (kernels/encode_tiles.py); "host":
+        # the numpy H264ReferenceEncoder; "auto": the device
+        self.engine = engine
+        # rate control: "vbr", "cbr", or "cqp" (fixed qp)
+        self.rc_mode = "cqp" if qp is not None else rc_mode
+        self.vbv_buffer_ms = vbv_buffer_ms
+
+    def effective_qp(self) -> int:
+        if self.qp is not None:
+            return self.qp
+        # bits/pixel -> the first frame's QP (rate control moves it)
+        bpp = (self.bitrate_kb * 1000.0) / max(
+            1.0, self.fps * self.width * self.height)
+        qp = int(round(34 - 6 * math.log2(max(bpp, 1e-4) / 0.1)))
+        return int(np.clip(qp, 10, 48))
+
+
+class _HevcEncAdapter:
+    """Gives the HEVC encoder the H264ReferenceEncoder session interface."""
+
+    class _Cfg:
+        def __init__(self, qp, gop_len):
+            self.qp = qp
+            self.gop_len = gop_len
+
+    def __init__(self, enc):
+        self._e = enc
+        self.cfg = self._Cfg(enc.qp, getattr(enc, "gop_len", 1))
+        self.frame_idx = 0
+
+    def headers_annexb(self) -> bytes:
+        return self._e.headers_annexb()
+
+    def encode_frame(self, Y, U, V, qp=None) -> bytes:
+        out = self._e.encode_frame(Y, U, V, qp=qp)
+        self.frame_idx += 1
+        return out
+
+    def spspps(self):
+        from ..codec.hevc import nal as HN
+        from ..codec.hevc.refenc import write_pps, write_sps
+        e = self._e
+        sps = HN.write_nal_unit(HN.NAL_SPS,
+                                write_sps(e.pw, e.ph, e.conf_win))
+        pps = HN.write_nal_unit(HN.NAL_PPS, write_pps())
+        return sps, pps
+
+
+# speed presets trade search range and partition evaluation for
+# throughput
+_PRESET_KNOBS = {
+    "fast": dict(search_range=8, inter_partitions=False),
+    "hp": dict(search_range=8, inter_partitions=False),
+    "balanced": dict(search_range=16, inter_partitions=True),
+    "default": dict(search_range=16, inter_partitions=True),
+    "quality": dict(search_range=24, inter_partitions=True),
+    "hq": dict(search_range=24, inter_partitions=True),
+}
+
+
+class EncoderSession:
+    """YUV in -> Annex-B bitstream out with keyframe flags + SPS/PPS
+    export.
+
+    device: where the device engine runs (None: the card, which must be
+    there; the tests pass "cpu"). The host engine and HEVC never touch
+    torch's devices."""
+
+    MAX_QUEUED = 30  # packets queued before more_data() asks for no more
+
+    def __init__(self, params: Optional[EncoderParams] = None, device=None):
+        self.params = params or EncoderParams()
+        engine = self.params.engine
+        if engine == "auto":
+            engine = "device"
+        if self.params.num_bframe and self.params.codec != Codec.H264:
+            raise NotImplementedError("B-frames: H.264 only")
+        if self.params.num_bframe and engine == "device":
+            # the device engine's batched ME is P-only: B groups run on
+            # the host engine, as in jmcodec_tpu
+            logger.info("num_bframe>0: using the host encode engine")
+            engine = "host"
+        if self.params.codec == Codec.HEVC:
+            # HEVC encode: IDR + P...P closed GOPs (single reference)
+            from ..codec.hevc.refenc import HevcEncoder
+            self._enc = _HevcEncAdapter(HevcEncoder(
+                self.params.width, self.params.height,
+                qp=self.params.effective_qp(),
+                gop_len=max(1, self.params.gop_len)))
+        else:
+            from ..codec.h264.refenc import (EncoderConfig,
+                                             H264ReferenceEncoder)
+            knobs = _PRESET_KNOBS.get(self.params.preset)
+            if knobs is None:
+                raise ValueError(f"preset {self.params.preset!r}")
+            cfg = EncoderConfig(
+                self.params.width, self.params.height,
+                qp=self.params.effective_qp(),
+                gop_len=max(1, self.params.gop_len),
+                num_bframe=int(self.params.num_bframe), **knobs)
+            if engine == "device":
+                from ..codec.h264.devenc import DeviceH264Encoder
+                self._enc = DeviceH264Encoder(cfg, device)
+            elif engine == "host":
+                self._enc = H264ReferenceEncoder(cfg)
+            else:
+                raise ValueError(f"engine {engine!r}")
+        self._rc = None
+        if self.params.rc_mode in ("cbr", "vbr"):
+            from ..pipeline.ratecontrol import (RateControlConfig,
+                                                RateController)
+            self._rc = RateController(RateControlConfig(
+                bitrate_kbps=self.params.bitrate_kb,
+                fps=float(self.params.fps), mode=self.params.rc_mode,
+                buffer_ms=self.params.vbv_buffer_ms,
+                gop_len=max(1, self.params.gop_len),
+                init_qp=self.params.effective_qp()))
+        elif self.params.rc_mode != "cqp":
+            raise ValueError(f"rc_mode {self.params.rc_mode!r}")
+        self._out: deque = deque()
+        self._eof = False
+        self._meter = _FpsMeter()
+        self._headers_sent = False
+
+    def more_data(self) -> bool:
+        return len(self._out) < self.MAX_QUEUED and not self._eof
+
+    need_more_data = more_data
+
+    def encode_frame(self, yuv, fmt: PixFmt = PixFmt.I420) -> None:
+        """Encode one frame. yuv: (Y, U, V) planes or packed bytes."""
+        Y, U, V = self._unpack(yuv, fmt)
+        payload = b""
+        if not self._headers_sent:
+            payload += self._enc.headers_annexb()
+            self._headers_sent = True
+        is_key = (self._enc.cfg.gop_len <= 1
+                  or self._enc.frame_idx % self._enc.cfg.gop_len == 0)
+        qp = None
+        if self._rc is not None:
+            qp = self._rc.frame_qp("I" if is_key else "P")
+        nal = self._enc.encode_frame(np.asarray(Y, np.int32),
+                                     np.asarray(U, np.int32),
+                                     np.asarray(V, np.int32), qp=qp)
+        if self._rc is not None:
+            self._rc.update("I" if is_key else "P", qp, len(nal) * 8)
+        if nal:
+            # B groups emit several access units at once (decode order);
+            # an empty return means the picture is buffered in its group
+            self._out.append((payload + nal, is_key))
+        elif payload:
+            self._out.append((payload, is_key))
+        self._meter.tick_frame()
+
+    def output_bitstream(self) -> Optional[Tuple[bytes, bool]]:
+        """Pop (bytes, is_keyframe)."""
+        if not self._out:
+            return None
+        return self._out.popleft()
+
+    def set_eof(self) -> None:
+        if not self._eof and hasattr(self._enc, "flush"):
+            tail = self._enc.flush()
+            if tail:
+                self._out.append((tail, False))
+        self._eof = True
+
+    def is_exit(self) -> bool:
+        return self._eof and not self._out
+
+    def get_spspps(self) -> Tuple[bytes, bytes]:
+        """The SPS and PPS NAL units (Annex-B)."""
+        if isinstance(self._enc, _HevcEncAdapter):
+            return self._enc.spspps()
+        from ..codec.h264.params import write_pps, write_sps
+        sps = NAL.write_nal_unit(3, NAL.NAL_SPS, write_sps(self._enc.sps))
+        pps = NAL.write_nal_unit(3, NAL.NAL_PPS, write_pps(self._enc.pps))
+        return sps, pps
+
+    def info(self) -> str:
+        return (f"jmcodec-tpu encode | {self.params.width}x{self.params.height}"
+                f" qp={self._enc.cfg.qp} frames={self._meter.frames}"
+                f" fps={self._meter.fps():.1f}")
+
+    def _unpack(self, yuv, fmt: PixFmt):
+        if isinstance(yuv, tuple):
+            return yuv
+        w, h = self.params.width, self.params.height
+        buf = np.frombuffer(yuv, np.uint8)
+        Y = buf[:w * h].reshape(h, w)
+        if fmt == PixFmt.I420:
+            U = buf[w * h:w * h + w * h // 4].reshape(h // 2, w // 2)
+            V = buf[w * h + w * h // 4:w * h * 3 // 2].reshape(h // 2, w // 2)
+        elif fmt == PixFmt.YV12:
+            V = buf[w * h:w * h + w * h // 4].reshape(h // 2, w // 2)
+            U = buf[w * h + w * h // 4:w * h * 3 // 2].reshape(h // 2, w // 2)
+        elif fmt == PixFmt.NV12:
+            uv = buf[w * h:w * h * 3 // 2].reshape(h // 2, w)
+            U = uv[:, 0::2]
+            V = uv[:, 1::2]
+        else:
+            raise ValueError(fmt)
+        return Y, U, V

@@ -1,4 +1,4 @@
-"""H.264 CAVLC residual coding (spec 9.2): the decode half.
+"""H.264 CAVLC residual coding (spec 9.2): decode + encode.
 
 Tables are transcribed from ITU-T H.264 Tables 9-5/9-7/9-8/9-9a/9-10 as bit
 strings and validated structurally at import (prefix-freeness + Kraft sums;
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
-from ...utils.bits import BitReader
+from ...utils.bits import BitReader, BitWriter
 
 # ---------------------------------------------------------------------------
 # Table 9-5: coeff_token. Four VLC classes by nC plus chroma-DC class.
@@ -195,6 +195,7 @@ _CT_DEC = [
     None,  # nC >= 8: fixed-length, handled inline
     _VlcDecoder(_invert(_CT_CHROMA_DC), "coeff_token[chromaDC]"),
 ]
+_CT_ENC = [_CT0, _CT1, _CT2, None, _CT_CHROMA_DC]
 
 _TZ_DEC = {tc: _VlcDecoder({c: i for i, c in enumerate(codes)},
                            f"total_zeros[{tc}]")
@@ -299,3 +300,111 @@ def decode_residual_block(r: BitReader, nC: int, max_num_coeff: int) -> List[int
             zeros_left -= run
             pos -= 1 + run
     return coeffs, total_coeff
+
+
+# ---------------------------------------------------------------------------
+# Encode (inverse of the decode mapping above)
+# ---------------------------------------------------------------------------
+
+def _write_code(w: BitWriter, code: str) -> None:
+    w.u(int(code, 2), len(code))
+
+
+def encode_residual_block(w: BitWriter, coeffs: List[int], nC: int,
+                          max_num_coeff: int) -> int:
+    """Encode scan-order coefficients; returns TotalCoeff (for nC bookkeeping)."""
+    nz = [(i, c) for i, c in enumerate(coeffs[:max_num_coeff]) if c != 0]
+    total_coeff = len(nz)
+    if total_coeff > max_num_coeff:
+        raise ValueError("too many coefficients")
+
+    # trailing ones: up to 3 consecutive +-1 at the high-frequency end
+    trailing_ones = 0
+    for i in range(total_coeff - 1, -1, -1):
+        if abs(nz[i][1]) == 1 and trailing_ones < 3:
+            trailing_ones += 1
+        else:
+            break
+
+    cls = _nc_class(nC)
+    if cls == 3:
+        if total_coeff == 0:
+            w.u(3, 6)
+        else:
+            w.u(((total_coeff - 1) << 2) | trailing_ones, 6)
+    else:
+        _write_code(w, _CT_ENC[cls][(trailing_ones, total_coeff)])
+    if total_coeff == 0:
+        return 0
+
+    # levels: highest frequency first
+    hi_first = [c for _, c in reversed(nz)]
+    for i in range(trailing_ones):
+        w.u(1 if hi_first[i] < 0 else 0, 1)
+    suffix_length = 1 if (total_coeff > 10 and trailing_ones < 3) else 0
+    for i in range(trailing_ones, total_coeff):
+        level = hi_first[i]
+        level_code = 2 * level - 2 if level > 0 else -2 * level - 1
+        if i == trailing_ones and trailing_ones < 3:
+            level_code -= 2
+        _write_level(w, level_code, suffix_length)
+        if suffix_length == 0:
+            suffix_length = 1
+        if abs(level) > (3 << (suffix_length - 1)) and suffix_length < 6:
+            suffix_length += 1
+
+    # total_zeros: zeros below the last nonzero coefficient
+    last_pos = nz[-1][0]
+    total_zeros = last_pos + 1 - total_coeff
+    if total_coeff < max_num_coeff:
+        if nC < 0:
+            _write_code(w, _TOTAL_ZEROS_CHROMA_DC[total_coeff][total_zeros])
+        else:
+            _write_code(w, _TOTAL_ZEROS_4x4[total_coeff][total_zeros])
+
+    # runs (from highest frequency down)
+    zeros_left = total_zeros
+    positions = [i for i, _ in nz]  # ascending scan positions
+    for k in range(total_coeff - 1, 0, -1):
+        run = positions[k] - positions[k - 1] - 1
+        if zeros_left > 0:
+            _write_code(w, _RUN_BEFORE[min(zeros_left, 7)][run])
+        zeros_left -= run
+    return total_coeff
+
+
+def _write_level(w: BitWriter, level_code: int, suffix_length: int) -> None:
+    """Emit level_prefix/level_suffix matching the decoder mapping exactly."""
+    if suffix_length == 0:
+        if level_code < 14:
+            w.u(1, level_code + 1)  # level_prefix = level_code
+        elif level_code < 14 + 16:
+            w.u(1, 15)  # prefix 14
+            w.u(level_code - 14, 4)
+        else:
+            lc = level_code - 15  # decoder adds 15 back for prefix>=15, sl==0
+            _write_escape(w, lc, 0)
+    else:
+        if level_code < (15 << suffix_length):
+            prefix = level_code >> suffix_length
+            w.u(1, prefix + 1)
+            w.u(level_code & ((1 << suffix_length) - 1), suffix_length)
+        else:
+            _write_escape(w, level_code, suffix_length)
+
+
+def _write_escape(w: BitWriter, level_code: int, suffix_length: int) -> None:
+    """prefix >= 15 escape: levelCode = (15<<sl) + suffix [+ (1<<(p-3))-4096 for p>=16]."""
+    base = level_code - (15 << suffix_length)
+    if base < (1 << 12):
+        w.u(1, 16)  # prefix 15: 15 zeros + stop bit
+        w.u(base, 12)
+        return
+    # prefix >= 16: representable range for prefix p is
+    #   [2^(p-3) - 4096, 2^(p-2) - 4096)   ==>   p = bitlen(base + 4096) + 2
+    prefix = (base + 4096).bit_length() + 2
+    if prefix > 31:
+        raise ValueError("level too large for CAVLC")
+    rng_lo = (1 << (prefix - 3)) - 4096
+    w.u(1, prefix + 1)
+    w.u(base - rng_lo, prefix - 3)

@@ -1,6 +1,6 @@
 """P-slice inter syntax + motion vector prediction (spec 7.3.5.1, 8.4.1).
 
-Extends the macroblock layer with inter MB parsing and the normative
+Extends the macroblock layer with inter MB parsing/writing and the normative
 MV predictors (median, 16x8/8x16 directional rules, P_Skip). Motion state
 lives in per-4x4 grids on MBGrids-like storage so CAVLC nC, MV prediction and
 deblock bS derivation all share one source of truth.
@@ -13,7 +13,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ...utils.bits import BitReader
+from ...utils.bits import BitReader, BitWriter
 from . import macroblock as MB
 
 # P mb_type (Table 7-13)
@@ -142,6 +142,13 @@ def read_te(r: BitReader, max_val: int) -> int:
     if max_val == 1:
         return 1 - r.u(1)
     return r.ue()
+
+
+def write_te(w: BitWriter, v: int, max_val: int) -> None:
+    if max_val == 1:
+        w.u(1 - v, 1)
+    else:
+        w.ue(v)
 
 
 @dataclass
@@ -288,6 +295,81 @@ def apply_skip(g: MB.MBGrids, m: MotionGrids, my: int, mx: int,
     m.done[my * 4:my * 4 + 4, mx * 4:mx * 4 + 4] = 1
     s.partitions.append(InterPartition(my * 4, mx * 4, 4, 4, 0, mv))
     return s
+
+
+# ---------------------------------------------------------------------------
+# writing (encoder side)
+# ---------------------------------------------------------------------------
+
+def write_p_macroblock(w: BitWriter, g: MB.MBGrids, m: MotionGrids,
+                       my: int, mx: int, cur_slice: int, qp_prev: int,
+                       s: PMBSymbols, num_ref: int) -> None:
+    if s.mb_class != MB_P:
+        MB.write_i_macroblock(w, g, my, mx, cur_slice, qp_prev, s,
+                              mb_type_offset=5)
+        m.ref[my * 4:my * 4 + 4, mx * 4:mx * 4 + 4] = -1
+        m.mv[my * 4:my * 4 + 4, mx * 4:mx * 4 + 4] = 0
+        m.done[my * 4:my * 4 + 4, mx * 4:mx * 4 + 4] = 1
+        return
+    w.ue(s.p_type)
+    g.mb_class[my, mx] = MB_P
+    g.slice_id[my, mx] = cur_slice
+    g.i4_modes[my * 4:my * 4 + 4, mx * 4:mx * 4 + 4] = -1
+
+    def emit_partition(part: InterPartition, kind):
+        mvp = predict_mv(g, m, part.by, part.bx, part.w4, part.h4,
+                         part.ref_idx, cur_slice, kind)
+        mvd = part.mv - mvp
+        m.mv[part.by:part.by + part.h4, part.bx:part.bx + part.w4] = part.mv
+        m.ref[part.by:part.by + part.h4, part.bx:part.bx + part.w4] = part.ref_idx
+        m.done[part.by:part.by + part.h4, part.bx:part.bx + part.w4] = 1
+        return int(mvd[0]), int(mvd[1])
+
+    parts = s.partitions
+    if s.p_type == P_16x16:
+        if num_ref > 1:
+            write_te(w, parts[0].ref_idx, num_ref - 1)
+        mvd = emit_partition(parts[0], "other")
+        w.se(mvd[0])
+        w.se(mvd[1])
+    elif s.p_type in (P_16x8, P_8x16):
+        kinds = (("16x8_top", "16x8_bot") if s.p_type == P_16x8
+                 else ("8x16_left", "8x16_right"))
+        if num_ref > 1:
+            for p in parts:
+                write_te(w, p.ref_idx, num_ref - 1)
+        mvds = [emit_partition(p, k) for p, k in zip(parts, kinds)]
+        for mvd in mvds:
+            w.se(mvd[0])
+            w.se(mvd[1])
+    else:  # P_8x8
+        for t in s.sub_types:
+            w.ue(t)
+        if s.p_type == P_8x8 and num_ref > 1:
+            b8_refs = {}
+            for p in parts:
+                b8 = ((p.by - my * 4) // 2) * 2 + (p.bx - mx * 4) // 2
+                b8_refs.setdefault(b8, p.ref_idx)
+            for b8 in range(4):
+                write_te(w, b8_refs[b8], num_ref - 1)
+        for p in parts:
+            mvd = emit_partition(p, "other")
+            w.se(mvd[0])
+            w.se(mvd[1])
+
+    cbp = (s.cbp_chroma << 4) | s.cbp_luma
+    w.ue(int(MB.CBP_INTER_TO_CODE[cbp]))
+    if s.cbp_luma or s.cbp_chroma:
+        delta = s.qp - qp_prev
+        if delta > 25:
+            delta -= 52
+        elif delta < -26:
+            delta += 52
+        w.se(delta)
+    else:
+        s.qp = qp_prev
+    g.qp[my, mx] = s.qp
+    MB._write_residual(w, g, my, mx, cur_slice, s)
 
 
 # ---------------------------------------------------------------------------
@@ -757,3 +839,97 @@ def _parse_b_residual_tail(r, g, m, my, mx, cur_slice, qp_prev, s,
         s.qp = qp_prev
     g.qp[my, mx] = s.qp
     MB._parse_residual(r, g, my, mx, cur_slice, s)
+
+
+# ---------------------------------------------------------------------------
+# B-slice writing (encoder side): num_ref = 1 per list, CAVLC.
+# Reference capability: frameIntervalP B-frames (nv_enc/nv_enc.cpp:527-528).
+# ---------------------------------------------------------------------------
+
+# inverse of B_MB_TABLE for the 16x16 shapes the encoder emits
+B_TYPE_L0_16x16 = 1
+B_TYPE_L1_16x16 = 2
+B_TYPE_BI_16x16 = 3
+
+
+def write_b_macroblock(w: BitWriter, g: MB.MBGrids, m: MotionGrids,
+                       my: int, mx: int, cur_slice: int, qp_prev: int,
+                       s: "BMBSymbols", l0_pocs, l1_pocs) -> None:
+    """Write one non-skip B macroblock (intra, B_Direct_16x16, or the
+    16x16 L0/L1/Bi shapes). Grid updates mirror the parser exactly so the
+    encoder's MV predictors match the decoder's."""
+    if s.mb_class != MB_B:
+        MB.write_i_macroblock(w, g, my, mx, cur_slice, qp_prev, s,
+                              mb_type_offset=23)
+        sl = (slice(my * 4, my * 4 + 4), slice(mx * 4, mx * 4 + 4))
+        m.ref[sl] = -1
+        m.ref1[sl] = -1
+        m.mv[sl] = 0
+        m.mv1[sl] = 0
+        m.refpic0[sl] = MotionGrids.NO_PIC
+        m.refpic1[sl] = MotionGrids.NO_PIC
+        m.done[sl] = 1
+        return
+
+    g.mb_class[my, mx] = MB_B
+    g.slice_id[my, mx] = cur_slice
+    g.i4_modes[my * 4:my * 4 + 4, mx * 4:mx * 4 + 4] = -1
+
+    if s.is_direct:
+        # B_Direct_16x16: motion already derived + written to the grids by
+        # apply_direct; only the mb_type is coded
+        w.ue(0)
+    else:
+        part = s.partitions[0]
+        use0 = part.ref_idx >= 0
+        use1 = part.ref_idx1 >= 0
+        w.ue(B_TYPE_BI_16x16 if (use0 and use1)
+             else (B_TYPE_L0_16x16 if use0 else B_TYPE_L1_16x16))
+        by, bx = my * 4, mx * 4
+        # mvd emission mirrors parse order: L0 first, then L1; mvp computed
+        # BEFORE the grids are updated for this MB
+        mvds = []
+        for lst in (0, 1):
+            use = use0 if lst == 0 else use1
+            if not use:
+                continue
+            mv = part.mv if lst == 0 else part.mv1
+            ref = part.ref_idx if lst == 0 else part.ref_idx1
+            mvp = predict_mv(g, m.lst(lst), by, bx, 4, 4, ref, cur_slice)
+            mvds.append((int(mv[0] - mvp[0]), int(mv[1] - mvp[1])))
+            sl = (slice(by, by + 4), slice(bx, bx + 4))
+            if lst == 0:
+                m.mv[sl] = mv
+                m.ref[sl] = ref
+                m.refpic0[sl] = l0_pocs[ref]
+            else:
+                m.mv1[sl] = mv
+                m.ref1[sl] = ref
+                m.refpic1[sl] = l1_pocs[ref]
+        sl = (slice(by, by + 4), slice(bx, bx + 4))
+        if not use0:
+            m.ref[sl] = -1
+            m.mv[sl] = 0
+            m.refpic0[sl] = MotionGrids.NO_PIC
+        if not use1:
+            m.ref1[sl] = -1
+            m.mv1[sl] = 0
+            m.refpic1[sl] = MotionGrids.NO_PIC
+        m.done[sl] = 1
+        for (dx, dy) in mvds:
+            w.se(dx)
+            w.se(dy)
+
+    cbp = (s.cbp_chroma << 4) | s.cbp_luma
+    w.ue(int(MB.CBP_INTER_TO_CODE[cbp]))
+    if s.cbp_luma or s.cbp_chroma:
+        delta = s.qp - qp_prev
+        if delta > 25:
+            delta -= 52
+        elif delta < -26:
+            delta += 52
+        w.se(delta)
+    else:
+        s.qp = qp_prev
+    g.qp[my, mx] = s.qp
+    MB._write_residual(w, g, my, mx, cur_slice, s)

@@ -1,6 +1,6 @@
-"""H.264 macroblock-layer syntax (spec 7.3.5, 7.4.5): the parse, plus the
-per-frame neighbor bookkeeping (nC prediction, intra-mode prediction) of the
-host decoder.
+"""H.264 macroblock-layer syntax (spec 7.3.5, 7.4.5): parse + write, plus the
+per-frame neighbor bookkeeping (nC prediction, intra-mode prediction) shared
+by the host decoder and the encoders.
 
 Intra macroblocks here; inter.py extends it with the inter MB types. The
 device path reads the block scan tables (BLK_X, BLK_Y,
@@ -14,7 +14,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ...utils.bits import BitReader
+from ...utils.bits import BitReader, BitWriter
 from . import cavlc
 
 # Macroblock classes (internal enum, not bitstream values)
@@ -38,6 +38,8 @@ CBP_INTER_FROM_CODE = np.array([
 
 for _t in (CBP_INTRA_FROM_CODE, CBP_INTER_FROM_CODE):
     assert sorted(_t.tolist()) == list(range(48)), "Table 9-4 transcription bug"
+CBP_INTRA_TO_CODE = np.argsort(CBP_INTRA_FROM_CODE).astype(np.int32)
+CBP_INTER_TO_CODE = np.argsort(CBP_INTER_FROM_CODE).astype(np.int32)
 
 
 # 4x4 luma block decode order within an MB: 8x8 quadrant raster, then 4x4
@@ -174,7 +176,7 @@ class MBGrids:
 
 @dataclass
 class MBSymbols:
-    """Decoded symbols of one intra macroblock."""
+    """Decoded (or to-be-encoded) symbols of one intra macroblock."""
     mb_class: int = MB_I4x4
     i4_modes: List[int] = field(default_factory=lambda: [0] * 16)  # blkIdx order
     i16_mode: int = 0
@@ -360,4 +362,96 @@ def _parse_residual_chroma(r, g, my, mx, cur_slice, s: MBSymbols) -> None:
                 g.nz_chroma[comp, by, bx] = tc
             else:
                 s.chroma_ac[comp][i] = [0] * 15
+                g.nz_chroma[comp, by, bx] = 0
+
+
+# ---------------------------------------------------------------------------
+# Writing (encoder side) — exact inverse of the parser
+# ---------------------------------------------------------------------------
+
+def write_i_macroblock(w: BitWriter, g: MBGrids, my: int, mx: int,
+                       cur_slice: int, qp_prev: int, s: MBSymbols,
+                       mb_type_offset: int = 0) -> None:
+    """Write one intra MB. mb_type_offset: 5 when inside a P slice (Table
+    7-13 maps intra types to mb_type-5 there)."""
+    if s.mb_class == MB_IPCM:
+        w.ue(25 + mb_type_offset)
+        w.align()
+        for b in s.pcm_luma:
+            w.u(b, 8)
+        for b in s.pcm_chroma:
+            w.u(b, 8)
+        g.mb_class[my, mx] = MB_IPCM
+        g.slice_id[my, mx] = cur_slice
+        g.qp[my, mx] = qp_prev
+        g.nz_luma[my * 4:my * 4 + 4, mx * 4:mx * 4 + 4] = 16
+        g.nz_chroma[:, my * 2:my * 2 + 2, mx * 2:mx * 2 + 2] = 16
+        return
+
+    # mark early so within-MB neighbor lookups see this MB (mirrors parser)
+    g.mb_class[my, mx] = s.mb_class
+    g.slice_id[my, mx] = cur_slice
+
+    if s.mb_class == MB_I4x4:
+        w.ue(0 + mb_type_offset)
+        for i in range(16):
+            by = my * 4 + int(BLK_Y[i]) // 4
+            bx = mx * 4 + int(BLK_X[i]) // 4
+            pred = g.predict_i4_mode(by, bx, cur_slice)
+            mode = s.i4_modes[i]
+            if mode == pred:
+                w.flag(1)
+            else:
+                w.flag(0)
+                w.u(mode - 1 if mode > pred else mode, 3)
+            g.i4_modes[by, bx] = mode
+        w.ue(s.chroma_mode)
+        cbp = (s.cbp_chroma << 4) | s.cbp_luma
+        w.ue(int(CBP_INTRA_TO_CODE[cbp]))
+    else:
+        w.ue(i16_mb_type(s.i16_mode, s.cbp_luma, s.cbp_chroma) + mb_type_offset)
+        w.ue(s.chroma_mode)
+
+    if s.cbp_luma or s.cbp_chroma or s.mb_class == MB_I16x16:
+        delta = s.qp - qp_prev
+        if delta > 25:
+            delta -= 52
+        elif delta < -26:
+            delta += 52
+        w.se(delta)
+    else:
+        s.qp = qp_prev
+    g.qp[my, mx] = s.qp
+    _write_residual(w, g, my, mx, cur_slice, s)
+
+
+def _write_residual(w: BitWriter, g: MBGrids, my: int, mx: int,
+                    cur_slice: int, s: MBSymbols) -> None:
+    """Residual syntax writer (exact inverse of _parse_residual); shared by
+    intra and inter MB writers."""
+    if s.mb_class == MB_I16x16:
+        nc = g.luma_nc(my * 4, mx * 4, cur_slice)
+        cavlc.encode_residual_block(w, s.luma_dc, nc, 16)
+    n_ac = 15 if s.mb_class == MB_I16x16 else 16
+    for i in range(16):
+        by = my * 4 + int(BLK_Y[i]) // 4
+        bx = mx * 4 + int(BLK_X[i]) // 4
+        if s.cbp_luma & (1 << (i >> 2)):
+            nc = g.luma_nc(by, bx, cur_slice)
+            tc = cavlc.encode_residual_block(w, s.luma_ac[i][:n_ac], nc, n_ac)
+            g.nz_luma[by, bx] = tc
+        else:
+            g.nz_luma[by, bx] = 0
+    if s.cbp_chroma:
+        for comp in range(2):
+            cavlc.encode_residual_block(w, s.chroma_dc[comp], -1, 4)
+    for comp in range(2):
+        for i in range(4):
+            by = my * 2 + int(CBLK_Y[i]) // 4
+            bx = mx * 2 + int(CBLK_X[i]) // 4
+            if s.cbp_chroma == 2:
+                nc = g.chroma_nc(comp, by, bx, cur_slice)
+                tc = cavlc.encode_residual_block(w, s.chroma_ac[comp][i], nc, 15)
+                g.nz_chroma[comp, by, bx] = tc
+            else:
                 g.nz_chroma[comp, by, bx] = 0

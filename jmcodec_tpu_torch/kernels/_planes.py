@@ -14,9 +14,9 @@ def edge_pad(a, dim: int, before: int, after: int):
 
 def cell_origins(cells, step: int, pad: int):
     """Sample (row, column) of the top-left corner of every cell of the
-    [Hc, Wc] grid `cells` in a plane padded by `pad`: [Hc, 1] and [1, Wc]
-    int64."""
-    Hc, Wc = cells.shape
+    [..., Hc, Wc] grid `cells` in a plane padded by `pad`: [Hc, 1] and
+    [1, Wc] int64."""
+    Hc, Wc = cells.shape[-2:]
     dev = cells.device
     return (torch.arange(Hc, device=dev)[:, None] * step + pad,
             torch.arange(Wc, device=dev)[None, :] * step + pad)

@@ -471,9 +471,18 @@ def _mc_luma_batched(refp, mv, ref_idx):
     position is clamped into the padded plane, the reference index into
     the list, as in jmcodec_tpu, so any MV and an intra block stay in
     range."""
-    n_refs, Hp, Wp = refp.shape
-    planes = torch.stack(_halfpel_planes(refp), dim=1).reshape(-1)
-    dev = refp.device
+    return _mc_luma_batched_from_planes(_halfpel_planes(refp), mv, ref_idx)
+
+
+def _mc_luma_batched_from_planes(planes, mv, ref_idx):
+    """_mc_luma_batched from the half-pel planes of the references
+    (_halfpel_planes), computed once by a caller that predicts from them
+    many times (the encoder's sub-pel search). mv and ref_idx may carry leading axes, [..., mbh*4,
+    mbw*4, 2] and [..., mbh*4, mbw*4]: one prediction per leading
+    index."""
+    n_refs, Hp, Wp = planes[0].shape
+    dev = planes[0].device
+    planes = torch.stack(planes, dim=1).reshape(-1)
     mv, ref_idx = mv.long(), ref_idx.long()
     y0, x0 = cell_origins(ref_idx, 4, MC_PAD)
     xi = (x0 + (mv[..., 0] >> 2)).clamp(3, Wp - 8)

@@ -1,7 +1,9 @@
-"""H.264 exact integer inverse transforms and dequantisation (spec 8.5,
-flat scaling matrices) on int32 torch tensors, and their numpy twins for
-the host decoder (codec/h264/refdec.py: the np_* functions, chroma_qp,
-the zig-zag scans and the 8x8 transform).
+"""H.264 exact integer transforms and quantisation (spec 8.5, flat
+scaling matrices) on int32 torch tensors: the inverse transforms and
+dequantisation of the decode, the forward transform and quantiser of the
+device encoder (kernels/encode_tiles.py); and their numpy twins for the
+host decoder and encoders (codec/h264/refdec.py, refenc.py: the np_*
+functions, chroma_qp, the zig-zag scans and the 8x8 transform).
 
 Blocks are batched as [..., 4, 4] (or [..., 2, 2] for chroma DC). Every
 operation is an int32 add, multiply or shift, so the spec's truncating
@@ -30,8 +32,18 @@ _POS_IDX = np.array(
      [0, 2, 0, 2],
      [2, 1, 2, 1]], dtype=np.int32)
 
+# the encoder's quantiser multipliers MF(m, posidx) (JM's quant_coef)
+_MF = np.array(
+    [[13107, 5243, 8066],
+     [11916, 4660, 7490],
+     [10082, 4194, 6554],
+     [9362, 3647, 5825],
+     [8192, 3355, 5243],
+     [7282, 2893, 4559]], dtype=np.int32)
+
 # DEQUANT4x4[m, i, j] = v[m, posidx(i, j)] (flat weightScale = 16 folded in)
 DEQUANT4x4 = _V[:, _POS_IDX]        # [6, 4, 4]
+QUANT_MF4x4 = _MF[:, _POS_IDX]      # [6, 4, 4]
 
 # Chroma QP mapping, qPi 0..51 -> QPc (spec table 8-15)
 CHROMA_QP = np.array(
@@ -79,6 +91,37 @@ def hadamard_2x2(x):
     ], dim=-2)
 
 
+def forward_transform_4x4(x):
+    """The encoder's core transform W = Cf X Cf^T (exact, unscaled): x
+    [..., 4, 4] int32 residual -> [..., 4, 4] int32, columns first."""
+    r0, r1, r2, r3 = x.unbind(-2)
+    s0, s1, s2, s3 = r0 + r3, r1 + r2, r1 - r2, r0 - r3
+    c0, c1, c2, c3 = torch.stack(
+        [s0 + s1, 2 * s3 + s2, s0 - s1, s3 - 2 * s2], dim=-2).unbind(-1)
+    u0, u1, u2, u3 = c0 + c3, c1 + c2, c1 - c2, c0 - c3
+    return torch.stack([u0 + u1, 2 * u3 + u2, u0 - u1, u3 - 2 * u2], dim=-1)
+
+
+def quant_4x4(w, qp: int, intra: bool, mf_table):
+    """The encoder's quantiser (JM-style, non-normative): sign(W) *
+    ((|W| * MF + f) >> qbits), f a third (intra) or a sixth (inter) of a
+    step. w [..., 4, 4] int32; mf_table the QUANT_MF4x4 tensor on w's
+    device."""
+    qbits = 15 + qp // 6
+    f = ((1 << qbits) // 3) if intra else ((1 << qbits) // 6)
+    z = (w.abs() * mf_table[qp % 6] + f) >> qbits
+    return torch.where(w < 0, -z, z)
+
+
+def quant_dc(w, qp: int):
+    """The encoder's DC quantiser of the Hadamard-domain chroma 2x2 (and
+    luma 4x4) DC block: sign(W) * ((|W| * MF(0, 0) + 2f) >> (qbits + 1))."""
+    qbits = 15 + qp // 6
+    f = 2 * ((1 << qbits) // 3)
+    z = (w.abs() * int(QUANT_MF4x4[qp % 6, 0, 0]) + f) >> (qbits + 1)
+    return torch.where(w < 0, -z, z)
+
+
 def dequant_4x4(c, qp, dq_table):
     """Spec 8.5.12.1 with flat scaling lists: d = c * DQ[qp % 6] << (qp // 6).
     c [..., 4, 4] int32; qp [...] int32 per block; dq_table the DEQUANT4x4
@@ -120,7 +163,38 @@ def _np_inverse_transform_4x4(d):
     return (h + 32) >> 6
 
 
-def _np_hadamard_4x4(x):
+def np_forward_transform_4x4(x):
+    """numpy twin of forward_transform_4x4."""
+    x = np.asarray(x, np.int32)
+    r0, r1, r2, r3 = x[..., 0, :], x[..., 1, :], x[..., 2, :], x[..., 3, :]
+    s0, s1, s2, s3 = r0 + r3, r1 + r2, r1 - r2, r0 - r3
+    t = np.stack([s0 + s1, 2 * s3 + s2, s0 - s1, s3 - 2 * s2], axis=-2)
+    c0, c1, c2, c3 = t[..., :, 0], t[..., :, 1], t[..., :, 2], t[..., :, 3]
+    u0, u1, u2, u3 = c0 + c3, c1 + c2, c1 - c2, c0 - c3
+    return np.stack([u0 + u1, 2 * u3 + u2, u0 - u1, u3 - 2 * u2], axis=-1)
+
+
+def np_quant_4x4(w, qp: int, intra: bool):
+    """numpy twin of quant_4x4."""
+    w = np.asarray(w, np.int32)
+    qbits = 15 + qp // 6
+    f = ((1 << qbits) // 3) if intra else ((1 << qbits) // 6)
+    z = (np.abs(w) * QUANT_MF4x4[qp % 6] + f) >> qbits
+    return np.where(w < 0, -z, z)
+
+
+def np_quant_dc(w, qp: int):
+    """numpy twin of quant_dc."""
+    w = np.asarray(w, np.int32)
+    qbits = 15 + qp // 6
+    f = 2 * ((1 << qbits) // 3)
+    z = (np.abs(w) * QUANT_MF4x4[qp % 6, 0, 0] + f) >> (qbits + 1)
+    return np.where(w < 0, -z, z)
+
+
+def np_hadamard_4x4(x):
+    """numpy twin of hadamard_4x4 (the encoder's forward luma DC transform
+    too: the Hadamard is its own inverse up to scale)."""
     r0, r1, r2, r3 = x[..., 0, :], x[..., 1, :], x[..., 2, :], x[..., 3, :]
     s0, s1, s2, s3 = r0 + r3, r1 + r2, r1 - r2, r0 - r3
     t = np.stack([s0 + s1, s3 + s2, s0 - s1, s3 - s2], axis=-2)
@@ -129,7 +203,8 @@ def _np_hadamard_4x4(x):
     return np.stack([u0 + u1, u3 + u2, u0 - u1, u3 - u2], axis=-1)
 
 
-def _np_hadamard_2x2(x):
+def np_hadamard_2x2(x):
+    """numpy twin of hadamard_2x2."""
     a, b = x[..., 0, 0], x[..., 0, 1]
     c, d = x[..., 1, 0], x[..., 1, 1]
     return np.stack([
@@ -150,7 +225,7 @@ def np_dequant_4x4(c, qp: int):
 def np_luma_dc_decode(c_dc, qp: int):
     """Inverse Hadamard + scaling of the Intra16x16 luma DC block
     (8.5.10)."""
-    f = _np_hadamard_4x4(c_dc.astype(np.int32))
+    f = np_hadamard_4x4(c_dc.astype(np.int32))
     ls = DEQUANT4x4[qp % 6][..., 0, 0] * 16
     q6 = qp // 6
     if qp >= 36:
@@ -160,7 +235,7 @@ def np_luma_dc_decode(c_dc, qp: int):
 
 def np_chroma_dc_decode(c_dc, qpc: int):
     """Spec 8.5.11: dcC = ((f * LS(qPc % 6, 0, 0)) << (qPc // 6)) >> 5."""
-    f = _np_hadamard_2x2(c_dc.astype(np.int32))
+    f = np_hadamard_2x2(c_dc.astype(np.int32))
     ls = DEQUANT4x4[qpc % 6][..., 0, 0] * 16
     return ((f * ls) << (qpc // 6)) >> 5
 

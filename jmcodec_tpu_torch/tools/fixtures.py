@@ -1,7 +1,8 @@
 """Inputs for checks and timings of the port: the committed 1080p HEVC and
 H.264 all-intra fixtures at the smoke's batches, the 1080p HEVC and H.264
 inter fixtures, the 1080p HEVC cu_qp_delta fixture, the small session and
-HEVC host-route fixtures and the bit-flip corpus,
+HEVC host-route fixtures and the bit-flip corpus, the 1080p encode
+fixture's frames and the digests of their stream,
 seeded synthetic inputs for holding each kernel against its plain version,
 and copies of reference objects into the port's own types."""
 
@@ -33,6 +34,8 @@ H264_INTER_DIGESTS = os.path.join(ROOT, "tests", "data",
 CUQP_FIXTURE = os.path.join(ROOT, "tests", "data", "hevc_1080p_cuqp.h265")
 CUQP_DIGESTS = os.path.join(ROOT, "tests", "data",
                             "hevc_1080p_cuqp.sha256.json")
+ENCODE_DIGESTS = os.path.join(ROOT, "tests", "data",
+                              "h264_enc_1080p.sha256.json")
 # frames per decode batch, as bench.py's 1080p figures decode them
 BATCH = 16
 H264_BATCH = 32
@@ -127,6 +130,62 @@ def h264_inter_fixture_stream() -> bytes:
     picture, on 52-93 of the 254 diagonals of the intra scan."""
     with open(H264_INTER_FIXTURE, "rb") as f:
         return f.read()
+
+
+def _gradient_noise_frame(W: int, H: int, seed: int):
+    """tests/util_oracle.make_frame(W, H, seed, "gradient_noise"): a
+    diagonal luma ramp with uniform noise, chroma ramps with noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W]
+    Y = np.clip((x * 3 + y * 2) % 256 + rng.integers(-24, 24, (H, W)), 0,
+                255)
+    cy, cx = np.mgrid[0:H // 2, 0:W // 2]
+    U = np.clip(((cx * 2) % 200 + 28)
+                + rng.integers(-8, 8, (H // 2, W // 2)), 0, 255)
+    V = np.clip(((cy * 2) % 200 + 28)
+                + rng.integers(-8, 8, (H // 2, W // 2)), 0, 255)
+    return Y.astype(np.uint8), U.astype(np.uint8), V.astype(np.uint8)
+
+
+def pan_frames(W: int, H: int, n: int, step=(3, 2), seed: int = 3) -> list:
+    """tests/test_inter_decode.moving_frames(W, H, n, seed, step): frame i
+    [(Y, U, V) uint8] cut at row step[0] * i, column step[1] * i of
+    make_frame(W + 64, H + 64, seed, "gradient_noise")."""
+    BY, BU, BV = _gradient_noise_frame(W + 64, H + 64, seed)
+    cut = lambda P, y, x, h, w: P[y:y + h, x:x + w].copy()
+    out = []
+    for i in range(n):
+        dy, dx = i * step[0], i * step[1]
+        out.append((cut(BY, dy, dx, H, W),
+                    cut(BU, dy // 2, dx // 2, H // 2, W // 2),
+                    cut(BV, dy // 2, dx // 2, H // 2, W // 2)))
+    return out
+
+
+def encode_fixture_frames(n: int = 3) -> list:
+    """The 1080p encode fixture's frames: pan_frames(1920, 1080, n). The
+    SHA-256 and length of the stream that jmcodec_tpu's
+    EncoderSession(EncoderParams()) (1080p30, 2 Mb/s VBR, GOP 30, the
+    device engine) makes of them, its keyframe flags and the libavcodec
+    digests of its decode are in ENCODE_DIGESTS (tests/test_torch_encode.py
+    holds the recipe as code and rebuilds them)."""
+    return pan_frames(1920, 1080, n)
+
+
+# small device-engine encoder sessions (chip_smoke.py's phase 19 and
+# tests/test_torch_encode_cuda.py): name -> (EncoderParams keywords, frames
+# of pan_frames); rate control over GOPs that cross an IDR
+ENCODE_SESSIONS = {"cbr_gop3": (dict(width=96, height=64, bitrate_kb=300,
+                                     gop_len=3, rc_mode="cbr"), 5),
+                   "vbr_gop4": (dict(width=64, height=64, bitrate_kb=200,
+                                     gop_len=4), 6)}
+
+
+def encode_fixture() -> dict:
+    """ENCODE_DIGESTS: {"stream": {"sha256", "length"}, "keyframes": [...],
+    "frames": [{"Y", "U", "V"}, ...]}."""
+    with open(ENCODE_DIGESTS) as f:
+        return json.load(f)
 
 
 # the session fixtures under tests/data (their recipes are in

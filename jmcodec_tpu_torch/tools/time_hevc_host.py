@@ -32,14 +32,22 @@ from jmcodec_tpu_torch.utils.metrics import counters
 
 
 def cpu_name() -> str:
+    """The CPU's model name from /proc/cpuinfo; where a virtual machine
+    reports it as unknown, its vendor, family and model numbers."""
+    info = {}
     try:
         with open("/proc/cpuinfo") as f:
             for line in f:
-                if line.startswith("model name"):
-                    return line.split(":", 1)[1].strip()
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
     except OSError:
         pass
-    return platform.processor() or platform.machine()
+    name = info.get("model name", "unknown")
+    if name != "unknown":
+        return name
+    ids = [f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model")
+           if k in info]
+    return ", ".join(ids) or platform.processor() or platform.machine()
 
 
 def _blank(plan, ref_pixels):

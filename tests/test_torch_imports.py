@@ -50,7 +50,9 @@ def test_port_has_its_host_modules():
                  "codec/h264/cabac.py", "codec/h264/cabac_tables.py",
                  "codec/h264/inter.py", "codec/h264/refdec.py",
                  "codec/h264/macroblock.py", "ops/mc.py",
-                 "codec/hevc/cabac.py", "codec/hevc/cabac_tables.py"):
+                 "codec/hevc/cabac.py", "codec/hevc/cabac_tables.py",
+                 "codec/h264/refenc.py", "codec/hevc/refenc.py",
+                 "codec/hevc/cabac_enc.py", "pipeline/ratecontrol.py"):
         assert os.path.join("jmcodec_tpu_torch", want) in have, want
 
 
