@@ -17,8 +17,12 @@ and recon (the Python parse into the device's plans, the numpy decode of
 the pictures outside the device's scope); then the EncoderSession, the
 encoder's entry point, with the H.264 device engine (the host IDR, the P
 frames' motion search, transform and quantisation on the card, the host
-CAVLC pack, the reconstruction through the P decode). Every kernel launch
-count is set to 0 just before a path is driven and read just after.
+CAVLC pack, the reconstruction through the P decode); then the parallel
+layer at world size 1 (a one-rank NCCL group: the sharded H.264 decode
+and transcode step, the two-stage HEVC pipeline, the row-sharded decode)
+and the CLI tools (jmx_decode, jmx_transcode with its resume) and
+device_trace. Every kernel launch count is set to 0 just before a path is
+driven and read just after.
 Phases, one line each; any failure raises and the exit code is
 non-zero:
 
@@ -130,12 +134,46 @@ non-zero:
      on the CPU: the same packets and keyframe flags, dequant_idct launched
      twice a P frame
 
+ 20. the sharded H.264 decode at world size 1 (a one-rank NCCL group):
+     decode_symbols_sharded of phase 7's batch of 32, dequant_idct launched
+     twice, every plane equal to the libavcodec digests and to the
+     dequant_idct_reference decode; make_transcode_real_step on that batch
+     (the decode, the all_gather row-band reshard, the halo downscale, the
+     forward pass, the all_reduce of bits and ssd), dequant_idct twice, its
+     levels, bits and ssd equal to the same step's arithmetic on CPU
+     tensors of the card's frames; the fps (with the upload, the gather
+     and the copy to the host) and a step's time, one run each; the
+     dequant_idct kernel against dequant_idct_reference at the batch's
+     shapes
+ 21. decode_plans_pipelined on phase 4's batch of 16 as two batches of 8
+     with its default devices (one card: scan and filters on it, each
+     stage on a stream of its own): the walk launched twice a scan step
+     per batch, every plane equal to the digests and to
+     decode_frames_hevc_batch; the kernels by stream (profiled) and the
+     fps
+ 22. the row-sharded decode at sp = 1 of the H.264 P fixture's IDR and
+     of its second P picture (the first one's vertical MVs pass the halo
+     budget and are refused, as in the reference, which is checked):
+     dequant_idct twice a picture, the planes equal to the digests, the
+     IDR to the dequant_idct_reference decode
+ 23. the CLIs on the card: jmx_decode of the HEVC inter fixture (the
+     digests; the walk once per scan step with a TU); jmx_transcode
+     --scale 2 of the first three pictures of the H.264 P fixture (1080p
+     to 960x540, one GOP) into the committed SHA-256 of the JAX package's
+     transcode with its device engine (tests/data/transcode_1080p.
+     sha256.json), dequant_idct twice a decoded picture and twice an
+     encoded P frame; a second call resumes and encodes nothing; the GOP's
+     wall and the shares of decode, downscale and encode in it
+ 24. device_trace around a small H.264 and a small HEVC decode: the
+     Chrome trace exists and names both kernels' launches
+
 With --only hevc, --only h264, --only hevc_inter, --only h264_inter,
---only session, --only hevc_host or --only encode just that path is
-driven (phase 3 with either HEVC path, the session and the host route,
-phase 6 with either H.264 path, the session and the encoder; for work on
-one kernel or path, the run then prints no kernels' record that is
-complete).
+--only session, --only hevc_host, --only encode, --only parallel or
+--only tools just that path is driven (phase 3 with either HEVC path, the
+session, the host route, the parallel layer and the tools, phase 6 with
+either H.264 path, the session, the encoder, the parallel layer and the
+tools; for work on one kernel or path, the run then prints no kernels'
+record that is complete).
 
 Each kernel's record also carries the least time the card could take for
 its launch (bound_ms): the larger of its bytes (each input read once, each
@@ -157,10 +195,12 @@ import logging
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -184,6 +224,16 @@ from jmcodec_tpu_torch.kernels import hevc_walk as HW
 from jmcodec_tpu_torch.kernels import idct as ID
 from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
+from jmcodec_tpu_torch.parallel.decode_sharded import (
+    _synthetic_symbols, decode_symbols_sharded, run_transcode_real_step)
+from jmcodec_tpu_torch.parallel.framepp import (decode_plans_pipelined,
+                                                default_devices)
+from jmcodec_tpu_torch.parallel.mesh import ShardingConfig, build_mesh
+from jmcodec_tpu_torch.parallel.spatial import (
+    decode_frame_rows_sharded, decode_frame_rows_sharded_inter)
+from jmcodec_tpu_torch.parallel.transcode import (_downscale2x_with_halo,
+                                                  _encode_forward)
+from jmcodec_tpu_torch.tools import jmx_decode, jmx_transcode
 from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
                                               CUQP_DIGESTS,
                                               ENCODE_SESSIONS, FIXTURE,
@@ -209,12 +259,14 @@ from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
                                               session_fixture,
                                               synth_idct_blocks, synth_state,
                                               synth_state_hard,
-                                              synth_state_inter)
+                                              synth_state_inter,
+                                              transcode_fixture)
 from jmcodec_tpu_torch.tools.profile_h264_intra import _staged
 from jmcodec_tpu_torch.tools.profiling import raw_events, union_us
 from jmcodec_tpu_torch.utils.device import (gpu_name_power, gpu_sm_clock_mhz,
                                             require_cuda)
-from jmcodec_tpu_torch.utils.metrics import counters, logger, timers
+from jmcodec_tpu_torch.utils.metrics import (counters, device_trace,
+                                             logger, timers)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = 3
@@ -1440,11 +1492,344 @@ def encode_path(dev, card, idct_rec, err):
     return idct_rec
 
 
+def sharded_decode_path(dev, card):
+    """Phase 20. Returns the dequant_idct launches, its shapes at the
+    batch's and the figures."""
+    digests = fixture_digests(H264_DIGESTS)
+    workers = os.cpu_count() or 1
+    pics = parse_h264_intra_symbols(h264_fixture_batch_stream(),
+                                    workers=workers)
+    fss = [fs for fs, _ in pics]
+    fs0, sps = pics[0]
+    mbh, mbw, w, h = fs0.mb_height, fs0.mb_width, sps.width, sps.height
+    cfg = ShardingConfig(1, 1)
+    mesh = build_mesh(cfg)                      # a one-rank NCCL group
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"process group {dist.get_backend()} of {dist.get_world_size()}")
+    torch.cuda.synchronize()
+    reset_counts()
+    Y, U, V = decode_symbols_sharded(fss, cfg, mesh)
+    launches = ID.LAUNCHES
+    check(launches == 2, f"{launches} dequant_idct launches, want 2")
+    check(Y.shape == (H264_BATCH, mbh * 16, mbw * 16), f"Y {Y.shape}")
+    check_digests((Y[:, :h, :w], U[:, :h // 2, :w // 2],
+                   V[:, :h // 2, :w // 2]), digests, "sharded h264")
+    args = RC.stack_symbols(fss, dev)
+    ref = RT.decode_frames_batch(mbh, mbw, *args, deblock=True,
+                                 residual_fn=ID.dequant_idct_reference)
+    err = max(max_abs(torch.from_numpy(a), b.cpu())
+              for a, b in zip((Y, U, V), ref))
+    check(err == 0, "sharded decode != dequant_idct_reference decode")
+    del ref
+    # the whole step: the decode, the row-band reshard, the halo
+    # downscale, the forward pass, the summed statistics
+    reset_counts()
+    z, bits, ssd = run_transcode_real_step(fss, cfg)
+    step_launches = ID.LAUNCHES
+    check(step_launches == 2, f"{step_launches} dequant_idct launches in "
+                              f"the transcode step, want 2")
+    zc, bc, sc = _encode_forward(_downscale2x_with_halo(
+        torch.from_numpy(Y).to(torch.int32), mesh.get_group("sp")), 30)
+    check(np.array_equal(z, zc.numpy()) and (bits, ssd) == (int(bc), int(sc)),
+          "transcode step on the card != the same step on CPU tensors")
+    del zc
+    # one run each (the checked runs were the warm-up): a run takes ~8 s
+    t_dec, _ = sync_time(lambda: decode_symbols_sharded(fss, cfg, mesh), 1)
+    t_step, _ = sync_time(lambda: run_transcode_real_step(fss, cfg), 1)
+    shapes, e = idct_shapes(args)
+    say(f"phase 20 [{card}]: decode_symbols_sharded of {H264_BATCH}x "
+        f"{w}x{h} H.264 at world 1 (one-rank NCCL group): dequant_idct "
+        f"launched {launches} times, all {3 * H264_BATCH} planes match the "
+        f"libavcodec digests and the dequant_idct_reference decode; "
+        f"{H264_BATCH / t_dec:.2f} fps ({t_dec * 1000:.1f} ms: the "
+        f"symbols' upload, the decode, the all_gather and the copy to the "
+        f"host; phase 8's device-only decode is the same decode without "
+        f"the upload and the copy); make_transcode_real_step: levels "
+        f"{tuple(z.shape)}, bits {bits}, ssd {ssd}, equal to the step on "
+        f"CPU tensors of the card's frames, {t_step * 1000:.1f} ms a step")
+    say_idct_shapes("phase 20", card, shapes)
+    return launches + step_launches, shapes, max(err, e), {
+        "slice": "sharded h264 1080p all-intra decode, world 1",
+        "batch": H264_BATCH, "fps": H264_BATCH / t_dec,
+        "wall_ms": t_dec * 1000, "transcode_step_ms": t_step * 1000,
+        "bits": bits, "ssd": ssd, "dequant_idct_launches":
+        launches + step_launches, "card": card}
+
+
+def kernel_streams(fn):
+    """{stream id: CUDA kernel events} of one fn() run under
+    torch.profiler, and the streams of the hevc_walk kernel's events."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    streams, walk = {}, set()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        sid = e.device_resource_id()
+        streams[sid] = streams.get(sid, 0) + 1
+        if "hevc_walk" in e.name():
+            walk.add(sid)
+    return streams, walk
+
+
+def pipelined_path(dev, card):
+    """Phase 21. Returns the hevc_walk launches and the figures."""
+    digests = fixture_digests()
+    workers = os.cpu_count() or 1
+    plans = parse_hevc_intra_plans(fixture_batch_stream(), workers=workers)
+    p0 = plans[0]
+    C = 1 << p0.log2_ctb
+    steps = p0.Wp // C + HT.skew_for(C) * (p0.Hp // C - 1)
+    half = BATCH // 2
+    d_scan, d_filter = default_devices()
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = decode_plans_pipelined(plans, batch=half)
+    torch.cuda.synchronize()
+    launches = HW.LAUNCHES
+    check(len(outs) == 2, f"{len(outs)} batches")
+    check(launches == 2 * steps * 2, f"{launches} walk launches, want 2 a "
+                                     f"scan step of each of 2 batches")
+    check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC pipeline")
+    got = [torch.cat([o[k] for o in outs]) for k in range(3)]
+    check_digests(got, digests, "pipelined hevc")
+    want = HTT.decode_frames_hevc_batch(*HTT.stack_plans(plans, dev))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "pipelined decode != decode_frames_hevc_batch")
+    del got, want, outs
+    streams, walk_streams = kernel_streams(
+        lambda: decode_plans_pipelined(plans, batch=half))
+    t_pipe, t_issued = sync_time(
+        lambda: decode_plans_pipelined(plans, batch=half), REPS)
+    say(f"phase 21 [{card}]: decode_plans_pipelined of {BATCH}x "
+        f"{p0.width}x{p0.height} HEVC as 2 batches of {half}: scan stage on "
+        f"{d_scan}, filter stage on {d_filter} (one card: both stages on "
+        f"it, each on its own stream); kernels by stream "
+        f"{streams} (the walk on {sorted(walk_streams)}); hevc_walk "
+        f"launched {launches} times (2 a scan step of {steps}, per batch); "
+        f"all {3 * BATCH} planes match the libavcodec digests and "
+        f"decode_frames_hevc_batch; {BATCH / t_pipe:.2f} fps "
+        f"({t_pipe * 1000:.1f} ms with stack_plans' upload; the host had "
+        f"issued the last launch at {t_issued * 1000:.1f} ms; phase 5's "
+        f"device-only figure is the batch of 16 without the upload)")
+    check(len(walk_streams) == 1 and len(streams) >= 2,
+          "the scan and filter stages ran on one stream")
+    return launches, {"slice": "pipelined hevc 1080p all-intra decode",
+                      "batches": 2, "batch": half, "fps": BATCH / t_pipe,
+                      "wall_ms": t_pipe * 1000,
+                      "issued_ms": t_issued * 1000,
+                      "devices": [str(d_scan), str(d_filter)],
+                      "kernels_by_stream": {str(k): v
+                                            for k, v in streams.items()},
+                      "walk_launches": launches, "card": card}
+
+
+def row_sharded_path(dev, card):
+    """Phase 22. Returns the dequant_idct launches and the figures."""
+    digests = fixture_digests(H264_INTER_DIGESTS)
+    pics = list(parse_h264(h264_session_stream()))
+    cfg = ShardingConfig(1, 1)
+    (fi, sps), (f1, _), (f2, _) = pics[:3]
+    crop = lambda p, s: p[:sps.height // s, :sps.width // s]
+    reset_counts()
+    t0 = time.perf_counter()
+    idr = decode_frame_rows_sharded(fi, cfg=cfg)
+    t_idr = time.perf_counter() - t0
+    n_idr = ID.LAUNCHES
+    check(n_idr == 2, f"{n_idr} dequant_idct launches for the IDR")
+    check_digests([crop(p, s)[None] for p, s in zip(idr, (1, 2, 2))],
+                  digests[:1], "row-sharded IDR")
+    plain = RT.decode_frames_batch(
+        fi.mb_height, fi.mb_width, *RC.stack_symbols([fi], dev),
+        deblock=fi.deblock_enabled, residual_fn=ID.dequant_idct_reference)
+    check(all(np.array_equal(a, b[0].cpu().numpy())
+              for a, b in zip(idr, plain)),
+          "row-sharded IDR != the dequant_idct_reference decode")
+    # the first P picture's vertical MVs pass the halo budget: the row-
+    # sharded decode refuses it, as the reference does; it is decoded
+    # whole, and the second P picture row-sharded
+    mvy = int(np.abs(f1.mv[..., 1]).max())
+    try:
+        decode_frame_rows_sharded_inter(f1, [], cfg=cfg)
+        check(False, "a P picture past the halo budget was accepted")
+    except NotImplementedError as e:
+        check("halo budget" in str(e), str(e))
+    dpb = DeviceDPB()
+    dpb.add(fi, *(torch.from_numpy(a).to(dev) for a in idr))
+    Y1, U1, V1 = RT.decode_frame_symbols_inter(f1, *dpb.list0(f1))
+    dpb.add(f1, Y1, U1, V1)
+    refs, ids = dpb.list0(f2)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p2 = decode_frame_rows_sharded_inter(f2, refs, cfg=cfg, ref_ids=ids)
+    t_p = time.perf_counter() - t0
+    n_p = ID.LAUNCHES
+    check(n_p == 2, f"{n_p} dequant_idct launches for the P picture")
+    check_digests([crop(p, s)[None] for p, s in zip(p2, (1, 2, 2))],
+                  digests[2:3], "row-sharded P")
+    mvy2 = int(np.abs(f2.mv[..., 1]).max())
+    say(f"phase 22 [{card}]: row-sharded decode at sp = 1 (one-rank NCCL "
+        f"group) of the H.264 P fixture's IDR ({t_idr * 1000:.1f} ms) and "
+        f"of its second P picture ({len(refs)} references, |mvy| <= {mvy2}"
+        f" quarter samples; {t_p * 1000:.1f} ms): dequant_idct launched "
+        f"{n_idr} + {n_p} times, all 6 planes match the libavcodec digests, "
+        f"the IDR the dequant_idct_reference decode; the first P picture "
+        f"(|mvy| up to {mvy} > {4 * (RT.MC_PAD - 8)}) is refused, as in "
+        f"the reference")
+    dist.destroy_process_group()
+    return n_idr + n_p, {"slice": "row-sharded h264 1080p IDR + P, sp 1",
+                         "idr_ms": t_idr * 1000, "p_ms": t_p * 1000,
+                         "first_p_max_mvy": mvy, "second_p_max_mvy": mvy2,
+                         "dequant_idct_launches": n_idr + n_p,
+                         "card": card}
+
+
+def parallel_path(dev, card, walk_rec, idct_rec, idct_err):
+    """Phases 20-22: their launches added to the kernels' records (a
+    dequant_idct record of phase 20's shapes when no other path made
+    one)."""
+    idct_20, shapes, err, fig20 = sharded_decode_path(dev, card)
+    say(json.dumps(fig20))
+    torch.cuda.empty_cache()
+    walk_21, fig21 = pipelined_path(dev, card)
+    say(json.dumps(fig21))
+    torch.cuda.empty_cache()
+    idct_22, fig22 = row_sharded_path(dev, card)
+    say(json.dumps(fig22))
+    torch.cuda.empty_cache()
+    if idct_rec is None:
+        idct_rec = idct_record(shapes, 0, max(err, idct_err))
+    idct_rec["launches_parallel"] = idct_20 + idct_22
+    idct_rec["launches"] += idct_20 + idct_22
+    idct_rec["max_abs_err"] = max(idct_rec["max_abs_err"], err)
+    if walk_rec is not None:
+        walk_rec["launches_parallel"] = walk_21
+        walk_rec["launches"] += walk_21
+    return idct_rec
+
+
+def tools_path(dev, card, walk_rec, idct_rec):
+    """Phases 23-24: their launches added to the kernels' records."""
+    with tempfile.TemporaryDirectory(prefix="jmx_smoke_") as tmp:
+        # ---- jmx_decode: the HEVC inter fixture ----
+        plans = []
+        call = DeviceRecon.__call__
+
+        def recording(self, plan, ref_pixels):
+            plans.append(plan)
+            return call(self, plan, ref_pixels)
+
+        out = os.path.join(tmp, "inter.i420")
+        DeviceRecon.__call__ = recording
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            n = jmx_decode.decode_file(INTER_FIXTURE, out)
+            t_dec = time.perf_counter() - t0
+            walk_23 = HW.LAUNCHES
+        finally:
+            DeviceRecon.__call__ = call
+        digests = fixture_digests(INTER_DIGESTS)
+        taken = sum(sum(y) + sum(c) for y, c in map(HTT.walk_steps, plans))
+        check(n == len(digests) and walk_23 == taken and taken > 0,
+              f"jmx_decode: {n} frames, {walk_23} walk launches, {taken} "
+              f"scan steps with a TU")
+        raw = np.fromfile(out, np.uint8)
+        with open(INTER_DIGESTS) as f:
+            meta = json.load(f)
+        w, h = meta["width"], meta["height"]
+        size = w * h * 3 // 2
+        check(raw.size == n * size, f"jmx_decode wrote {raw.size} bytes")
+        frames = raw.reshape(n, size)
+        check_digests((frames[:, :w * h].reshape(n, h, w),
+                       frames[:, w * h:w * h * 5 // 4].reshape(n, h // 2,
+                                                               w // 2),
+                       frames[:, w * h * 5 // 4:].reshape(n, h // 2, w // 2)),
+                      digests, "jmx_decode hevc inter")
+        say(f"phase 23 [{card}]: jmx_decode of the HEVC inter fixture on the "
+            f"card: {n} frames {w}x{h} in {t_dec:.2f} s ({n / t_dec:.2f} fps "
+            f"with the file writes), all {3 * n} planes match the libavcodec "
+            f"digests, hevc_walk launched {walk_23} times (once per scan "
+            f"step with a TU)")
+
+        # ---- jmx_transcode --scale 2: 1080p -> 960x540, then resume ----
+        fx = transcode_fixture()
+        src = os.path.join(tmp, "in.h264")
+        with open(src, "wb") as f:
+            f.write(h264_session_stream())
+        job = os.path.join(tmp, "job")
+        reset_counts()
+        recs = jmx_transcode.transcode(src, job, qp=fx["qp"],
+                                       scale=fx["scale"])
+        idct_23 = ID.LAUNCHES
+        with open(os.path.join(job, "out.h264"), "rb") as f:
+            stream = f.read()
+        sha = hashlib.sha256(stream).hexdigest()
+        check(sha == fx["stream"]["sha256"]
+              and len(stream) == fx["stream"]["length"],
+              f"transcode SHA-256 {sha[:12]}, {len(stream)} bytes")
+        n_pics = H264_SESSION_PICTURES
+        check(idct_23 == 2 * n_pics + 2 * (n_pics - 1),
+              f"{idct_23} dequant_idct launches in the transcode, want 2 a "
+              f"decoded picture and 2 an encoded P frame")
+        again = jmx_transcode.transcode(src, job, qp=fx["qp"],
+                                        scale=fx["scale"])
+        with open(os.path.join(job, "out.h264"), "rb") as f:
+            check(again == [] and f.read() == stream,
+                  "the resumed transcode encoded again")
+    for r in recs:
+        share = {k: round(r[k] / r["wall_s"], 3)
+                 for k in ("decode_s", "downscale_s", "encode_s")}
+        say(f"phase 23 [{card}]: jmx_transcode --scale 2 GOP {r['gop']}: "
+            f"{r['frames']} frames 1920x1080 -> 960x540 in "
+            f"{r['wall_s']:.2f} s ({r['frames'] / r['wall_s']:.3f} fps); "
+            f"share of the wall: {share}")
+    say(f"phase 23: the transcode's stream equals the JAX package's "
+        f"(SHA-256 {sha[:16]}..., {len(stream)} bytes); dequant_idct "
+        f"launched {idct_23} times; a second call resumed and encoded "
+        f"nothing")
+
+    # ---- phase 24: device_trace around one decode ----
+    with tempfile.TemporaryDirectory(prefix="jmx_trace_") as tmp:
+        fss = _synthetic_symbols(4, 4, 2)
+        with open(os.path.join(ROOT, "tests", "data",
+                               "hevc_ctu16_64x64.h265"), "rb") as f:
+            plans = parse_hevc_intra_plans(f.read())[:1]
+        with device_trace(tmp):
+            RT.decode_frames_batch(fss[0].mb_height, fss[0].mb_width,
+                                   *RC.stack_symbols(fss, dev))
+            HTT.decode_plans_batch(plans, dev)
+        path = os.path.join(tmp, "trace.json")
+        with open(path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        n_idct = sum("dequant_idct_kernel" in n for n in names)
+        n_walk = sum("hevc_walk_kernel" in n for n in names)
+        check(n_idct > 0 and n_walk > 0,
+              f"trace names dequant_idct {n_idct}, hevc_walk {n_walk} times")
+        say(f"phase 24: device_trace wrote a Chrome trace "
+            f"({os.path.getsize(path)} bytes, {len(names)} events) naming "
+            f"dequant_idct_kernel {n_idct} and hevc_walk_kernel {n_walk} "
+            f"times")
+    for rec, launches in ((walk_rec, walk_23), (idct_rec, idct_23)):
+        if rec is not None:
+            rec["launches_tools"] = launches
+            rec["launches"] += launches
+    return {"slice": "jmx_decode and jmx_transcode on the card",
+            "decode_frames": n, "decode_s": t_dec,
+            "transcode_gops": recs, "transcode_sha256": sha,
+            "walk_launches": walk_23, "dequant_idct_launches": idct_23,
+            "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter",
                                        "h264_inter", "session",
-                                       "hevc_host", "encode"),
+                                       "hevc_host", "encode", "parallel",
+                                       "tools"),
                     help="drive one path only (no complete kernels' record)")
     only = ap.parse_args().only
     t_start = time.perf_counter()
@@ -1463,13 +1848,15 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
 
     walk_rec, idct_rec = None, None
-    if only in (None, "hevc", "hevc_inter", "session", "hevc_host"):
+    if only in (None, "hevc", "hevc_inter", "session", "hevc_host",
+                "parallel", "tools"):
         walk_err = check_walk_shapes(dev)
     if only in (None, "hevc"):
         walk_rec, fig = hevc_path(dev, card, walk_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
-    if only in (None, "h264", "h264_inter", "session", "encode"):
+    if only in (None, "h264", "h264_inter", "session", "encode",
+                "parallel", "tools"):
         idct_err = check_idct_kernel(dev)
     if only in (None, "h264"):
         idct_rec, fig = h264_path(dev, card, idct_err)
@@ -1491,6 +1878,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     if only in (None, "encode"):
         idct_rec = encode_path(dev, card, idct_rec, idct_err)
+        torch.cuda.empty_cache()
+    if only in (None, "parallel"):
+        idct_rec = parallel_path(dev, card, walk_rec, idct_rec, idct_err)
+    if only in (None, "tools"):
+        say(json.dumps(tools_path(dev, card, walk_rec, idct_rec)))
     recs = [r for r in (walk_rec, idct_rec) if r is not None]
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"kernels' build included")

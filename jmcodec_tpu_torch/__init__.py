@@ -8,6 +8,8 @@ twins the host decoder calls; utils/bits.py, utils/metrics.py) is its own
 copy under the same relative names as in jmcodec_tpu. Everything that ran
 on the TPU is written anew in torch (kernels/, ops/), with one
 hand-written CUDA kernel per Pallas kernel (csrc/). The entry points
-(api/: the streaming DecoderSession, the batch and stream decodes) run on
-the card unless the caller names a device.
+(api/: the streaming DecoderSession, the batch and stream decodes;
+parallel/: the multi-rank layer on torch.distributed; pipeline/gop.py and
+the CLIs under tools/; entry.py) run on the card unless the caller names
+a device.
 """

@@ -398,14 +398,35 @@ def decode_frames_hevc_batch(Hp: int, Wp: int, log2_ctb: int, strong: bool,
 
     decode_frame_hevc_inter passes base, the inter base planes (Y, Cb, Cr)
     [F, Hp, Wp] (half size for chroma) int32 that seed the scans, and
-    has_tu, the (luma, chroma) steps of walk_steps."""
+    has_tu, the (luma, chroma) steps of walk_steps.
+
+    The decode is its two stages in turn: decode_frames_hevc_scan, then
+    decode_frames_hevc_filters (parallel/framepp.py runs them on two
+    devices)."""
+    Y, U, V = decode_frames_hevc_scan(
+        Hp, Wp, log2_ctb, strong, coeff_y, tu_y, mode_y, zidx_y, qp_y,
+        coeff_cb, coeff_cr, tu_c, mode_c, zidx_c, cb_qp_off, cr_qp_off,
+        walk_fn=walk_fn, base=base, has_tu=has_tu)
+    return decode_frames_hevc_filters(
+        log2_ctb, deblock_on, pw, ph, width, height, Y, U, V, qp_y,
+        cb_qp_off, cr_qp_off, beta_off, tc_off, bs_ver, bs_hor, sao_type,
+        sao_offsets, sao_band, sao_eo)
+
+
+def decode_frames_hevc_scan(Hp: int, Wp: int, log2_ctb: int, strong: bool,
+                            coeff_y, tu_y, mode_y, zidx_y, qp_y,
+                            coeff_cb, coeff_cr, tu_c, mode_c, zidx_c,
+                            cb_qp_off, cr_qp_off, *, walk_fn=walk, base=None,
+                            has_tu=None):
+    """The scan stage of decode_frames_hevc_batch (its arguments of the
+    same names): residuals, the luma and chroma wavefront scans and the
+    unskew. Returns the int32 coded-size planes (Y, U, V) [F, Hp, Wp]
+    (half size for chroma), before the in-loop filters."""
     (coeff_y, tu_y, mode_y, zidx_y, qp_y, coeff_cb, coeff_cr, tu_c, mode_c,
-     zidx_c, cb_qp_off, cr_qp_off, beta_off, tc_off, bs_ver, bs_hor,
-     sao_type, sao_offsets, sao_band, sao_eo) = (
+     zidx_c, cb_qp_off, cr_qp_off) = (
         a.to(_I32) for a in (
             coeff_y, tu_y, mode_y, zidx_y, qp_y, coeff_cb, coeff_cr, tu_c,
-            mode_c, zidx_c, cb_qp_off, cr_qp_off, beta_off, tc_off, bs_ver,
-            bs_hor, sao_type, sao_offsets, sao_band, sao_eo))
+            mode_c, zidx_c, cb_qp_off, cr_qp_off))
     dev = coeff_y.device
     nf = coeff_y.shape[0]
     C = 1 << log2_ctb
@@ -454,8 +475,23 @@ def decode_frames_hevc_batch(Hp: int, Wp: int, log2_ctb: int, strong: bool,
     half = nf * ctb_h
     U = _unskew_to_plane(Ct[:, :half], cys, cxs, valid, ctb_h, ctb_w, Cc)
     V = _unskew_to_plane(Ct[:, half:], cys, cxs, valid, ctb_h, ctb_w, Cc)
+    return Y, U, V
 
-    # ---- in-loop filters ----
+
+def decode_frames_hevc_filters(log2_ctb: int, deblock_on: bool, pw: int,
+                               ph: int, width: int, height: int, Y, U, V,
+                               qp_y, cb_qp_off, cr_qp_off, beta_off, tc_off,
+                               bs_ver, bs_hor, sao_type, sao_offsets,
+                               sao_band, sao_eo):
+    """The filter stage of decode_frames_hevc_batch (its arguments of the
+    same names) on the scan stage's planes: deblock, SAO and the
+    conformance crop. Returns (Y, U, V) uint8 [F, height, width] (half
+    size for chroma)."""
+    (qp_y, cb_qp_off, cr_qp_off, beta_off, tc_off, bs_ver, bs_hor, sao_type,
+     sao_offsets, sao_band, sao_eo) = (
+        a.to(_I32) for a in (
+            qp_y, cb_qp_off, cr_qp_off, beta_off, tc_off, bs_ver, bs_hor,
+            sao_type, sao_offsets, sao_band, sao_eo))
     if deblock_on:
         Y, U, V = _deblock(Y, U, V, bs_ver, bs_hor, qp_y, beta_off, tc_off,
                            cb_qp_off, cr_qp_off)

@@ -28,14 +28,24 @@ by one lane. Stages:
 Every tensor has a leading frame axis; the lane axis is the second, and
 the only cross-lane operation is a roll along it, so frames never mix.
 All pixel math is exact int32.
+
+Row-sharded decode (parallel/spatial.py): each rank of a process group
+holds a band of consecutive lanes (macroblock rows), in rank order. Under
+lane_group(group) every lane roll of the scans sends the one boundary lane
+to the neighbouring rank of the ring and takes the other neighbour's,
+instead of wrapping locally; _reconstruct(..., group=group) slices
+the rank's band out of the skewed inputs and gathers the finished tiles.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..codec.h264 import macroblock as MB
 from ..ops import deblock as DB
@@ -48,6 +58,11 @@ from .recon import (_TR_SRC, _pred_16_batch, _pred_chroma_batch,
 
 _I32 = torch.int32
 _LANE = 1       # axis of the wavefront lanes, after the frame axis
+
+# the collective that concatenates every rank's tensor along dim 0 (torch
+# renamed all_gather_into_tensor to all_gather_single; same arguments)
+all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
 
 
 # ---------------------------------------------------------------------------
@@ -94,9 +109,59 @@ def _unskew_to_frame(tiles, mys, mxs, valid, mbh: int, mbw: int, ts: int):
         .permute(0, 1, 3, 2, 4).reshape(nf, mbh * ts, mbw * ts)
 
 
+# the process group of a row-sharded scan (None: every lane is local)
+_LANE_GROUP = contextvars.ContextVar("lane_group", default=None)
+# boundary-lane exchanges made by _roll_lanes under lane_group, one per roll
+# of a step; read by the tests
+LANE_EXCHANGES = 0
+
+
+@contextlib.contextmanager
+def lane_group(group):
+    """Route the scans' lane rolls through `group`, a torch.distributed
+    process group whose ranks hold consecutive lane bands in rank order:
+    the counterpart of jmcodec_tpu's lane_axis (a ppermute ring under
+    shard_map). None: every lane is local."""
+    token = _LANE_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _LANE_GROUP.reset(token)
+
+
+def _roll_lanes(x, k: int):
+    """torch.roll(x, k, dims=_LANE) over the lanes of every rank of the
+    lane group together (k = 1: lane j takes lane j-1's value; k = -1: lane
+    j+1's). A rank sends its boundary lane to the next (k = 1) or previous
+    (k = -1) rank of the ring and takes the other neighbour's; lane 0 of
+    the first rank wraps to the last rank's last lane, as the local roll
+    wraps (its users mask it)."""
+    group = _LANE_GROUP.get()
+    n = 1 if group is None else dist.get_world_size(group)
+    if n == 1:
+        return torch.roll(x, k, dims=_LANE)
+    me = dist.get_group_rank(group, dist.get_rank())
+    to, frm = (me + k) % n, (me - k) % n
+    edge = x.narrow(_LANE, x.shape[_LANE] - 1 if k == 1 else 0, 1)
+    wire = lambda t: t.to(torch.uint8) if t.dtype == torch.bool else t
+    send = wire(edge).contiguous()
+    recv = torch.empty_like(send)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, dist.get_global_rank(group, to),
+                       group),
+            dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, frm),
+                       group)]):
+        req.wait()
+    global LANE_EXCHANGES
+    LANE_EXCHANGES += 1
+    recv = recv.to(x.dtype)
+    rest = x.narrow(_LANE, 0 if k == 1 else 1, x.shape[_LANE] - 1)
+    return torch.cat([recv, rest] if k == 1 else [rest, recv], dim=_LANE)
+
+
 def _roll1(x):
     """Lane k takes lane k-1's value (lane 0 wraps; its users mask it)."""
-    return torch.roll(x, 1, dims=_LANE)
+    return _roll_lanes(x, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +393,7 @@ def _deblock_scan(Yt, Ut, Vt, qp_t, valid_t, alpha_off, beta_off,
                                     bs[e // 4], ia, ib, tabs)
                 _strip(R, dim, e - 4, e).copy_(Pn)
                 _strip(R, dim, e, e + 4).copy_(Qn)
-        By = torch.roll(Ty, -1, dims=_LANE)
+        By = _roll_lanes(Ty, -1)
 
         # ---------- chroma ----------
         new_c = []
@@ -350,7 +415,7 @@ def _deblock_scan(Yt, Ut, Vt, qp_t, valid_t, alpha_off, beta_off,
                                       iac, ibc, tabs)
                 _strip(Rc, dim, 2, 4).copy_(Pn)
                 _strip(Rc, dim, 4, 6).copy_(Qn)
-            new_c.append((Rc, Ac, torch.roll(Tc, -1, dims=_LANE)))
+            new_c.append((Rc, Ac, _roll_lanes(Tc, -1)))
 
         (Ru, Au2, Bu), (Rv, Av2, Bv) = new_c
         # diagonal t-2 is final; the window moves on: A <- this diagonal,
@@ -464,17 +529,20 @@ for _fy in range(4):
         _MC_SEL[_fy, _fx] = sel
 
 
-def _mc_luma_batched(refp, mv, ref_idx):
+def _mc_luma_batched(refp, mv, ref_idx, clip_y=None):
     """refp [n_refs, Hp, Wp] padded luma (pad_ref_device); mv [mbh*4,
     mbw*4, 2] quarter-pel and ref_idx [mbh*4, mbw*4] (-1: intra) per 4x4
     block -> the predicted luma [mbh*4, mbw*4, 4, 4] int32. The block's
     position is clamped into the padded plane, the reference index into
     the list, as in jmcodec_tpu, so any MV and an intra block stay in
-    range."""
-    return _mc_luma_batched_from_planes(_halfpel_planes(refp), mv, ref_idx)
+    range. clip_y (lo, hi) replaces the vertical clamp [3, Hp - 8]: a row
+    band of a row-sharded picture (parallel/spatial.py) clamps at the
+    whole picture's bounds, shifted by the band's first row."""
+    return _mc_luma_batched_from_planes(_halfpel_planes(refp), mv, ref_idx,
+                                        clip_y)
 
 
-def _mc_luma_batched_from_planes(planes, mv, ref_idx):
+def _mc_luma_batched_from_planes(planes, mv, ref_idx, clip_y=None):
     """_mc_luma_batched from the half-pel planes of the references
     (_halfpel_planes), computed once by a caller that predicts from them
     many times (the encoder's sub-pel search). mv and ref_idx may carry leading axes, [..., mbh*4,
@@ -486,7 +554,8 @@ def _mc_luma_batched_from_planes(planes, mv, ref_idx):
     mv, ref_idx = mv.long(), ref_idx.long()
     y0, x0 = cell_origins(ref_idx, 4, MC_PAD)
     xi = (x0 + (mv[..., 0] >> 2)).clamp(3, Wp - 8)
-    yi = (y0 + (mv[..., 1] >> 2)).clamp(3, Hp - 8)
+    yi = (y0 + (mv[..., 1] >> 2)).clamp(*((3, Hp - 8) if clip_y is None
+                                          else clip_y))
     sel = _t(_MC_SEL, dev, torch.int64)[mv[..., 1] & 3, mv[..., 0] & 3]
     r = ref_idx.clamp(0, n_refs - 1)
     r4 = torch.arange(4, device=dev)
@@ -502,17 +571,19 @@ def _mc_luma_batched_from_planes(planes, mv, ref_idx):
                        (p1 + p2 + 1) >> 1, p1)
 
 
-def _mc_chroma_batched(refc, mv, ref_idx):
+def _mc_chroma_batched(refc, mv, ref_idx, clip_y=None):
     """refc [n_refs, Hc, Wc] padded chroma. Chroma moves with the luma
     partitions, so each luma 4x4 block predicts its co-located 2x2 chroma
     block at eighth-sample precision (8.4.2.2.2): returns [mbh*4, mbw*4,
-    2, 2] int32, clamped as _mc_luma_batched is."""
+    2, 2] int32, clamped as _mc_luma_batched is (clip_y replacing the
+    vertical clamp [0, Hc - 4])."""
     n_refs, Hc, Wc = refc.shape
     dev = refc.device
     mv, ref_idx = mv.long(), ref_idx.long()
     y0, x0 = cell_origins(ref_idx, 2, MC_PAD // 2)
     xi = (x0 + (mv[..., 0] >> 3)).clamp(0, Wc - 4)
-    yi = (y0 + (mv[..., 1] >> 3)).clamp(0, Hc - 4)
+    yi = (y0 + (mv[..., 1] >> 3)).clamp(*((0, Hc - 4) if clip_y is None
+                                          else clip_y))
     dx = (mv[..., 0] & 7)[..., None, None]
     dy = (mv[..., 1] & 7)[..., None, None]
     r = ref_idx.clamp(0, n_refs - 1)
@@ -598,13 +669,16 @@ def decode_frames_batch(mbh: int, mbw: int, mb_class, qp, i4_modes,
 
 
 def _reconstruct(mbh: int, mbw: int, sym, deblock: bool, residual_fn,
-                 inter=None, walk=None):
+                 inter=None, walk=None, group=None):
     """The device stages of a decode: residuals, the intra scan, deblocking
     and the unskew. sym: decode_frames_batch's tensors, with the frame
     axis. In a P picture, inter(resid_y, resid_u, resid_v) returns the
     inter tiles [F, mbh, mbw, 16, 16] / [..., 8, 8] that seed the scan and
     the per-edge bS (bs_v, bs_h) [F, mbh, mbw, 4, 4], and walk is the
-    picture's intra_steps."""
+    picture's intra_steps. group: a process group whose every rank
+    passes the same picture; rank i of n scans and deblocks lanes
+    (macroblock rows) [i * mbh / n, (i + 1) * mbh / n) under lane_group,
+    and every rank gets the whole picture back."""
     (mb_class, qp, i4_modes, i16_mode, chroma_mode, luma_coeffs, luma_dc,
      chroma_coeffs, chroma_dc, avail_left, avail_top, avail_topright,
      alpha_off, beta_off, chroma_qp_off, second_chroma_qp_off) = sym
@@ -614,7 +688,13 @@ def _reconstruct(mbh: int, mbw: int, sym, deblock: bool, residual_fn,
          avail_top, avail_topright))
     dev = qp.device
     mys, mxs, valid = (_t(a, dev) for a in _skew_geometry(mbh, mbw))
-    mys_i, mxs_i = mys.long(), mxs.long()
+    band = slice(None)
+    if group is not None:
+        n = dist.get_world_size(group)
+        i = dist.get_group_rank(group, dist.get_rank())
+        band = slice(i * mbh // n, (i + 1) * mbh // n)
+    mys_b, mxs_b, valid_b = mys[:, band], mxs[:, band], valid[:, band]
+    mys_i, mxs_i = mys_b.long(), mxs_b.long()
     sk = lambda a: _skew(a, mys_i, mxs_i)
 
     resid_y, resid_u, resid_v = _residuals(
@@ -628,20 +708,33 @@ def _reconstruct(mbh: int, mbw: int, sym, deblock: bool, residual_fn,
         inter_t = tuple(sk(t) for t in tiles)
 
     modes_mb = i4_modes.reshape(-1, mbh, 4, mbw, 4).permute(0, 1, 3, 2, 4)
-    Yt, Ut, Vt = _intra_tile_scan(
-        *(sk(r) for r in resid), sk(modes_mb), sk(mb_class), sk(i16_mode),
-        sk(chroma_mode), sk(avail_left), sk(avail_top), sk(avail_topright),
-        valid, inter_t, walk)
-    offs = (alpha_off, beta_off, chroma_qp_off, second_chroma_qp_off)
-    if deblock and bs is None:
-        Yt, Ut, Vt = _deblock_tile_scan_intra(Yt, Ut, Vt, sk(qp), mxs, mys,
-                                              valid, *offs)
-    elif deblock:
-        Yt, Ut, Vt = _deblock_tile_scan(Yt, Ut, Vt, sk(qp), valid, *offs,
-                                        sk(bs[0]), sk(bs[1]))
+    with lane_group(group):
+        Yt, Ut, Vt = _intra_tile_scan(
+            *(sk(r) for r in resid), sk(modes_mb), sk(mb_class),
+            sk(i16_mode), sk(chroma_mode), sk(avail_left), sk(avail_top),
+            sk(avail_topright), valid_b, inter_t, walk)
+        offs = (alpha_off, beta_off, chroma_qp_off, second_chroma_qp_off)
+        if deblock and bs is None:
+            Yt, Ut, Vt = _deblock_tile_scan_intra(Yt, Ut, Vt, sk(qp), mxs_b,
+                                                  mys_b, valid_b, *offs)
+        elif deblock:
+            Yt, Ut, Vt = _deblock_tile_scan(Yt, Ut, Vt, sk(qp), valid_b,
+                                            *offs, sk(bs[0]), sk(bs[1]))
+    if group is not None:
+        Yt, Ut, Vt = (_gather_lanes(t, group) for t in (Yt, Ut, Vt))
     un = lambda tiles, ts: _unskew_to_frame(
         tiles, mys, mxs, valid, mbh, mbw, ts).to(torch.uint8)
     return un(Yt, 16), un(Ut, 8), un(Vt, 8)
+
+
+def _gather_lanes(tiles, group):
+    """Skewed tiles [F, n_steps, band, ...] of every rank of `group`
+    concatenated along the lanes, in rank order."""
+    n = dist.get_world_size(group)
+    t = tiles.movedim(2, 0).contiguous()
+    out = t.new_empty((n * t.shape[0], *t.shape[1:]))
+    all_gather(out, t, group)
+    return out.movedim(0, 2)
 
 
 def decode_frame_inter(mbh: int, mbw: int, mb_class, qp, i4_modes, i16_mode,
@@ -650,7 +743,8 @@ def decode_frame_inter(mbh: int, mbw: int, mb_class, qp, i4_modes, i16_mode,
                        alpha_off, beta_off, chroma_qp_off,
                        second_chroma_qp_off, mv, ref_idx, ref_y, ref_u, ref_v,
                        ref_ids, walk, deblock: bool = True, wp=None,
-                       wp_logwd=(0, 0), *, residual_fn=dequant_idct_blocks):
+                       wp_logwd=(0, 0), *, residual_fn=dequant_idct_blocks,
+                       mc_fn=None, group=None):
     """One P picture: batched MC (wavefront-free), the intra scan over it
     for the intra macroblocks, and the per-edge-bS deblock. The symbol
     tensors are decode_frame's (no frame axis; the offsets 0-d); mv [mbh*4,
@@ -661,13 +755,17 @@ def decode_frame_inter(mbh: int, mbw: int, mb_class, qp, i4_modes, i16_mode,
     each list index's picture identity, for bS. walk: intra_steps of the
     picture's mb_class (host numpy). Returns (Y, U, V)
     uint8 [mbh*16, mbw*16] (chroma half size), padded to whole
-    macroblocks."""
+    macroblocks. The row-sharded decode (parallel/spatial.py) passes
+    mc_fn(ref_y, ref_u, ref_v, mv, ref_idx), which returns the unweighted
+    predictions of the whole picture ([mbh*4, mbw*4, 4, 4] luma, [...,
+    2, 2] chroma), and the group of _reconstruct."""
     mv, ref_idx = mv.to(_I32), ref_idx.to(_I32)
+    if mc_fn is None:
+        mc_fn = _mc_batched
 
     def inter(resid_y, resid_u, resid_v):
-        mc = [_mc_luma_batched(ref_y.to(_I32), mv, ref_idx),
-              _mc_chroma_batched(ref_u.to(_I32), mv, ref_idx),
-              _mc_chroma_batched(ref_v.to(_I32), mv, ref_idx)]
+        mc = mc_fn(ref_y.to(_I32), ref_u.to(_I32), ref_v.to(_I32), mv,
+                   ref_idx)
         if wp is not None:
             w = wp.to(_I32)
             mc = [_weight(m, w, ref_idx, 2 * k, wp_logwd[min(k, 1)])
@@ -685,8 +783,15 @@ def decode_frame_inter(mbh: int, mbw: int, mb_class, qp, i4_modes, i16_mode,
         mb_class, qp, i4_modes, i16_mode, chroma_mode, luma_coeffs, luma_dc,
         chroma_coeffs, chroma_dc, avail_left, avail_top, avail_topright,
         alpha_off, beta_off, chroma_qp_off, second_chroma_qp_off)), deblock,
-        residual_fn, inter, walk)
+        residual_fn, inter, walk, group)
     return Y[0], U[0], V[0]
+
+
+def _mc_batched(ref_y, ref_u, ref_v, mv, ref_idx):
+    """The unweighted luma and chroma predictions of a whole P picture."""
+    return [_mc_luma_batched(ref_y, mv, ref_idx),
+            _mc_chroma_batched(ref_u, mv, ref_idx),
+            _mc_chroma_batched(ref_v, mv, ref_idx)]
 
 
 def decode_frame(mbh: int, mbw: int, *args, deblock: bool = True,

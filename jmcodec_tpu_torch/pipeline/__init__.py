@@ -1,2 +1,3 @@
-"""Encode-side pipeline pieces: rate control (the port's copy of
-jmcodec_tpu/pipeline/ratecontrol.py)."""
+"""Pipeline pieces: rate control (the port's copy of
+jmcodec_tpu/pipeline/ratecontrol.py) and GOP scheduling with resumable
+transcode manifests (gop.py)."""

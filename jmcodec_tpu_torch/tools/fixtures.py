@@ -36,6 +36,10 @@ CUQP_DIGESTS = os.path.join(ROOT, "tests", "data",
                             "hevc_1080p_cuqp.sha256.json")
 ENCODE_DIGESTS = os.path.join(ROOT, "tests", "data",
                               "h264_enc_1080p.sha256.json")
+# the JAX package's transcode (device engine, --scale 2, --qp 28) of
+# h264_session_stream(): tests/test_torch_tools.py holds the recipe
+TRANSCODE_DIGESTS = os.path.join(ROOT, "tests", "data",
+                                 "transcode_1080p.sha256.json")
 # frames per decode batch, as bench.py's 1080p figures decode them
 BATCH = 16
 H264_BATCH = 32
@@ -147,6 +151,19 @@ def _gradient_noise_frame(W: int, H: int, seed: int):
     return Y.astype(np.uint8), U.astype(np.uint8), V.astype(np.uint8)
 
 
+def gradient_frame(W: int, H: int, seed: int = 0):
+    """util_oracle_free.make_gradient_frame(W, H, seed): a diagonal luma
+    ramp with uniform noise and flat chroma, uint8 (Y, U, V) (the content
+    of the multichip dryrun's row-sharded checks)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W]
+    Y = np.clip((x * 2 + y + seed * 7) % 256
+                + rng.integers(-12, 13, (H, W)), 0, 255).astype(np.uint8)
+    U = np.full((H // 2, W // 2), 96 + seed, np.uint8)
+    V = np.full((H // 2, W // 2), 148, np.uint8)
+    return Y, U, V
+
+
 def pan_frames(W: int, H: int, n: int, step=(3, 2), seed: int = 3) -> list:
     """tests/test_inter_decode.moving_frames(W, H, n, seed, step): frame i
     [(Y, U, V) uint8] cut at row step[0] * i, column step[1] * i of
@@ -162,6 +179,23 @@ def pan_frames(W: int, H: int, n: int, step=(3, 2), seed: int = 3) -> list:
     return out
 
 
+def row_sharded_stream(W: int = 64, H: int = 128) -> bytes:
+    """An IDR and a P picture of panning content (pan_frames, step (6,
+    4)), encoded by the port's host H.264 encoder at qp 28; a checkerboard
+    patch across rows 40-95 of the P picture, which motion search cannot
+    match, makes intra macroblocks there, across the row bands of a
+    row-sharded decode (tests/test_torch_spatial.py)."""
+    from ..codec.h264.refenc import EncoderConfig, H264ReferenceEncoder
+    enc = H264ReferenceEncoder(EncoderConfig(W, H, qp=28, gop_len=2))
+    s = enc.headers_annexb()
+    frames = pan_frames(W, H, 2, step=(6, 4))
+    y, x = np.mgrid[40:96, 16:48]
+    frames[1][0][40:96, 16:48] = ((x + y) % 2) * 255
+    for planes in frames:
+        s += enc.encode_frame(*(np.asarray(p, np.int32) for p in planes))
+    return s
+
+
 def encode_fixture_frames(n: int = 3) -> list:
     """The 1080p encode fixture's frames: pan_frames(1920, 1080, n). The
     SHA-256 and length of the stream that jmcodec_tpu's
@@ -170,6 +204,13 @@ def encode_fixture_frames(n: int = 3) -> list:
     digests of its decode are in ENCODE_DIGESTS (tests/test_torch_encode.py
     holds the recipe as code and rebuilds them)."""
     return pan_frames(1920, 1080, n)
+
+
+def transcode_fixture() -> dict:
+    """TRANSCODE_DIGESTS: {"input_sha256", "qp", "scale", "gops",
+    "stream": {"sha256", "length"}, ...}."""
+    with open(TRANSCODE_DIGESTS) as f:
+        return json.load(f)
 
 
 # small device-engine encoder sessions (chip_smoke.py's phase 19 and

@@ -2,9 +2,10 @@
 
 A logger with one level from the JMX_LOG environment variable, process-wide
 named counters (frames decoded on the device, corrupt pictures dropped,
-...) and per-stage wall timers. A stage that launches device work measures
-the host's issue of it, not the device's time: launches are asynchronous,
-so a device figure needs torch.cuda.synchronize() around it.
+...), per-stage wall timers and a device trace context. A stage that
+launches device work measures the host's issue of it, not the device's
+time: launches are asynchronous, so a device figure needs
+torch.cuda.synchronize() around it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 _level = os.environ.get("JMX_LOG", "WARNING").upper()
 logger = logging.getLogger("jmcodec_tpu_torch")
@@ -86,3 +87,27 @@ class StageTimers:
 
 
 timers = StageTimers()
+
+
+@contextlib.contextmanager
+def device_trace(out_dir: Optional[str] = None) -> Iterator[None]:
+    """torch.profiler around the block, its Chrome trace written to
+    out_dir (or JMX_TRACE) as trace.json: host and, where there is a card,
+    CUDA activity (every kernel launch by name). A no-op when neither is
+    set, as jmcodec_tpu's device_trace."""
+    out = out_dir or os.environ.get("JMX_TRACE")
+    if not out:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))

@@ -7,6 +7,7 @@ the hard states of synth_state_hard (all-4x4 lanes, a lone largest TU,
 lanes without a TU, z-scan Z, unavailable border patches, residuals at the
 int16 extremes) at C = 16 and C = 32."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +31,24 @@ def _state(name):
     return st, kw
 
 
+@pytest.fixture(scope="module")
+def xla_walk():
+    """jmcodec_tpu's XLA walk (hevc_tiles._make_walk) of a geometry (C,
+    max_tu, is_chroma, strong), jitted once for the module: levels above
+    size 8 as fori_loops, the same candidate order and arithmetic, but the
+    walk compiles once a shape instead of dispatching its ops eagerly
+    (~3x faster on the CPU), and the synthetic and hard states of a
+    geometry share the function."""
+    walks = {}
+
+    def get(C, max_tu, is_chroma, strong):
+        key = (C, max_tu, is_chroma, strong)
+        if key not in walks:
+            walks[key] = jax.jit(JT._make_walk(*key, unroll_below=8))
+        return walks[key]
+    return get
+
+
 def _jax_args(st):
     F, Z, R, T, M = st
     return (jnp.asarray(F.astype(np.int32)), jnp.asarray(Z),
@@ -38,16 +57,13 @@ def _jax_args(st):
 
 @pytest.mark.parametrize("variant", ["xla", "pallas"])
 @pytest.mark.parametrize("name", list(CASES))
-def test_walk_reference_matches_jax(name, variant):
+def test_walk_reference_matches_jax(name, variant, xla_walk):
     st, kw = _state(name)
     got = HW.walk(*map(torch.from_numpy, st), **kw)   # CPU -> reference
     assert got.dtype == torch.int16
     if variant == "xla":
-        # levels above size 8 as fori_loops: the same candidate order and
-        # arithmetic, but each level compiles once instead of dispatching
-        # every unrolled candidate's ops eagerly (~5x faster on the CPU)
-        jwalk = JT._make_walk(kw["C"], kw["max_tu"], kw["is_chroma"],
-                              kw["strong"], unroll_below=8)
+        jwalk = xla_walk(kw["C"], kw["max_tu"], kw["is_chroma"],
+                         kw["strong"])
     else:
         jwalk = make_pallas_walk(kw["C"], kw["max_tu"], kw["is_chroma"],
                                  kw["strong"])
@@ -69,11 +85,10 @@ def _hard_state(name):
 
 
 @pytest.mark.parametrize("name", list(HARD_CASES))
-def test_walk_reference_matches_jax_on_hard_states(name):
+def test_walk_reference_matches_jax_on_hard_states(name, xla_walk):
     st, kw = _hard_state(name)
     got = HW.walk(*map(torch.from_numpy, st), **kw)   # CPU -> reference
-    jwalk = JT._make_walk(kw["C"], kw["max_tu"], kw["is_chroma"],
-                          kw["strong"], unroll_below=8)
+    jwalk = xla_walk(kw["C"], kw["max_tu"], kw["is_chroma"], kw["strong"])
     want = np.asarray(jwalk(*_jax_args(st)))
     assert np.array_equal(got.numpy().astype(np.int32), want)
 
