@@ -167,18 +167,35 @@ non-zero:
  24. device_trace around a small H.264 and a small HEVC decode: the
      Chrome trace exists and names both kernels' launches
 
+ 25. the bench's two batched figures at 1080p through the port's
+     tools/bench.py (bench_hevc, bench_h264), one repeat each: the HEVC
+     batch of 16 and the H.264 batch of 32, every plane equal to the
+     digests, the walk launched 124 times and dequant_idct twice in the
+     checked decode; end-to-end and device-only fps (the other four
+     figures are timed by phases 12-14 and 18)
+ 26. jmx_quality --engine device at its default size (320x240), 4 frames,
+     the four default QPs: the card's streams equal the committed SHA-256
+     of the same tool's streams with --device cpu (tests/data/
+     quality_320x240.sha256.json), dequant_idct launched twice a P frame;
+     then, where the libavcodec oracle builds and runs here, the tool's
+     table and BD-rate against x264 (its streams the digests' again);
+     where it does not, one line saying so with make's or ldd's error
+
 With --only hevc, --only h264, --only hevc_inter, --only h264_inter,
---only session, --only hevc_host, --only encode, --only parallel or
---only tools just that path is driven (phase 3 with either HEVC path, the
-session, the host route, the parallel layer and the tools, phase 6 with
-either H.264 path, the session, the encoder, the parallel layer and the
-tools; for work on one kernel or path, the run then prints no kernels'
-record that is complete).
+--only session, --only hevc_host, --only encode, --only parallel,
+--only tools, --only bench or --only quality just that path is driven
+(phase 3 with either HEVC path, the session, the host route, the parallel
+layer, the tools and the bench, phase 6 with either H.264 path, the
+session, the encoder, the parallel layer, the tools, the bench and the
+quality tool; for work on one kernel or path, the run then prints no
+kernels' record that is complete).
 
 Each kernel's record also carries the least time the card could take for
 its launch (bound_ms): the larger of its bytes (each input read once, each
 output written once) over the HBM rate and its operations, counted from
-this run's inputs, over the int32 ALU rate.
+this run's inputs, over the int32 ALU rate; and launch_floor_ms, the time
+an empty kernel (torch.cuda._sleep(0)) takes from launch to completion,
+timed as the kernels' ms are (event_ms).
 
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Needs no arguments and no network.
@@ -194,6 +211,7 @@ import json
 import logging
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -233,7 +251,8 @@ from jmcodec_tpu_torch.parallel.spatial import (
     decode_frame_rows_sharded, decode_frame_rows_sharded_inter)
 from jmcodec_tpu_torch.parallel.transcode import (_downscale2x_with_halo,
                                                   _encode_forward)
-from jmcodec_tpu_torch.tools import jmx_decode, jmx_transcode
+from jmcodec_tpu_torch.tools import bench, jmx_decode, jmx_quality, oracle
+from jmcodec_tpu_torch.tools import jmx_transcode
 from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
                                               CUQP_DIGESTS,
                                               ENCODE_SESSIONS, FIXTURE,
@@ -255,6 +274,8 @@ from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
                                               h264_session_stream,
                                               inter_fixture_stream,
                                               pan_frames,
+                                              quality_fixture,
+                                              quality_streams,
                                               session_corpus,
                                               session_fixture,
                                               synth_idct_blocks, synth_state,
@@ -1824,12 +1845,115 @@ def tools_path(dev, card, walk_rec, idct_rec):
             "card": card}
 
 
+def bench_path(dev, card, walk_rec, idct_rec):
+    """Phase 25: the bench's batched figures, their launches added to the
+    kernels' records."""
+    reset_counts()
+    t0 = time.perf_counter()
+    hevc = bench.bench_hevc(fixture_batch_stream(), fixture_digests(), dev,
+                            reps=1)
+    h264 = bench.bench_h264(h264_fixture_batch_stream(),
+                            fixture_digests(H264_DIGESTS), dev, reps=1)
+    dt = time.perf_counter() - t0
+    walk, idct = HW.LAUNCHES, ID.LAUNCHES
+    check(hevc["launches"] == {"hevc_walk": 124, "dequant_idct": 0},
+          f"bench_hevc launches {hevc['launches']}")
+    check(h264["launches"] == {"hevc_walk": 0, "dequant_idct": 2},
+          f"bench_h264 launches {h264['launches']}")
+    say(f"phase 25 [{card}]: tools/bench.py, one repeat each: bench_hevc "
+        f"{hevc['frames']} frames {hevc['fps']:.2f} fps end to end, "
+        f"{hevc['device_fps']:.2f} device-only, hevc_walk launched 124 "
+        f"times in its checked decode; bench_h264 {h264['frames']} frames "
+        f"{h264['fps']:.3f} fps end to end, {h264['device_fps']:.3f} "
+        f"device-only, dequant_idct launched twice; every plane equals the "
+        f"libavcodec digests; {dt:.1f} s; launches in all: hevc_walk "
+        f"{walk}, dequant_idct {idct}")
+    for rec, n in ((walk_rec, walk), (idct_rec, idct)):
+        if rec is not None:
+            rec["launches_bench"] = n
+            rec["launches"] += n
+    return {"slice": "tools/bench.py batched figures", "hevc": hevc,
+            "h264": h264, "wall_s": dt, "card": card}
+
+
+def oracle_problem():
+    """None where the libavcodec oracle builds and runs here; else one
+    line: make's error, or the libraries ldd does not find."""
+    if not oracle.have_oracle():
+        r = subprocess.run(["make", "-C", oracle.ORACLE_DIR],
+                           capture_output=True, text=True)
+        err = [ln for ln in r.stderr.splitlines() if "error" in ln.lower()]
+        return "make -C tests/oracle: " + " | ".join(err or [r.stderr[-300:]])
+    r = subprocess.run(["ldd", oracle.ORACLE_BIN], capture_output=True,
+                       text=True)
+    missing = [ln.strip() for ln in r.stdout.splitlines()
+               if "not found" in ln]
+    return "ldd tests/oracle/oracle: " + " | ".join(missing) if missing \
+        else None
+
+
+def quality_path(dev, card, idct_rec):
+    """Phase 26: jmx_quality --engine device on the card."""
+    fx = quality_fixture()
+    reset_counts()
+    t0 = time.perf_counter()
+    streams = quality_streams(fx, dev)
+    dt = time.perf_counter() - t0
+    launches = ID.LAUNCHES
+    check(HW.LAUNCHES == 0, "hevc_walk launched by the encoder")
+    n_p = sum(1 for i in range(fx["frames"]) if i % fx["gop"])
+    check(launches == 2 * n_p * len(fx["qps"]),
+          f"{launches} dequant_idct launches for {n_p} P frames a QP")
+    for qp, stream in streams.items():
+        got = {"sha256": hashlib.sha256(stream).hexdigest(),
+               "length": len(stream)}
+        check(got == fx["streams"][str(qp)],
+              f"qp {qp}: the card's stream {got} is not the CPU's")
+    say(f"phase 26 [{card}]: jmx_quality --engine device {fx['size']}, "
+        f"{fx['frames']} frames, GOP {fx['gop']}, QPs {fx['qps']}: the "
+        f"card's streams equal the --device cpu streams' SHA-256 "
+        f"({dt:.1f} s); dequant_idct launched {launches} times (2 a P "
+        f"frame)")
+    problem = oracle_problem()
+    result = None
+    if problem:
+        say(f"phase 26: no libavcodec oracle on this machine, so no PSNR "
+            f"or BD-rate here: {problem}")
+    else:
+        reset_counts()
+        result = jmx_quality.main(["--size", fx["size"], "--frames",
+                                   str(fx["frames"]), "--gop",
+                                   str(fx["gop"]), "--engine", "device"])
+        launches += ID.LAUNCHES
+        check(result["device"] == torch.cuda.get_device_name(0),
+              f"device engine on {result['device']}")
+        check([r["ours_bits"] for r in result["points"]]
+              == [8 * fx["streams"][str(q)]["length"] for q in fx["qps"]],
+              "the tool's streams are not the digests' streams")
+        say(f"phase 26 [{card}]: BD-rate vs x264 "
+            f"{result['bd_rate_vs_x264_pct']}% over {result['points']}")
+    if idct_rec is not None:
+        idct_rec["launches_quality"] = launches
+        idct_rec["launches"] += launches
+    return {"slice": "jmx_quality --engine device", "size": fx["size"],
+            "frames": fx["frames"], "qps": fx["qps"], "wall_s": dt,
+            "dequant_idct_launches": launches, "oracle": problem or "ok",
+            "quality": result, "card": card}
+
+
+def launch_floor_ms():
+    """An empty kernel's launch to completion (torch.cuda._sleep(0): one
+    thread that returns at once), timed as the kernels' ms are."""
+    return statistics.median(event_ms(lambda: torch.cuda._sleep(0), 200)
+                             for _ in range(5))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter",
                                        "h264_inter", "session",
                                        "hevc_host", "encode", "parallel",
-                                       "tools"),
+                                       "tools", "bench", "quality"),
                     help="drive one path only (no complete kernels' record)")
     only = ap.parse_args().only
     t_start = time.perf_counter()
@@ -1846,17 +1970,21 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     say(f"phase 2: built {os.path.relpath(lib, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
+    floor = launch_floor_ms()
+    say(f"phase 2 [{card}]: an empty kernel (torch.cuda._sleep(0)) takes "
+        f"{floor:.5f} ms from launch to completion behind a spin kernel "
+        f"(median of 5 runs of 200 launches)")
 
     walk_rec, idct_rec = None, None
     if only in (None, "hevc", "hevc_inter", "session", "hevc_host",
-                "parallel", "tools"):
+                "parallel", "tools", "bench"):
         walk_err = check_walk_shapes(dev)
     if only in (None, "hevc"):
         walk_rec, fig = hevc_path(dev, card, walk_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
     if only in (None, "h264", "h264_inter", "session", "encode",
-                "parallel", "tools"):
+                "parallel", "tools", "bench", "quality"):
         idct_err = check_idct_kernel(dev)
     if only in (None, "h264"):
         idct_rec, fig = h264_path(dev, card, idct_err)
@@ -1883,7 +2011,15 @@ def main() -> int:
         idct_rec = parallel_path(dev, card, walk_rec, idct_rec, idct_err)
     if only in (None, "tools"):
         say(json.dumps(tools_path(dev, card, walk_rec, idct_rec)))
+        torch.cuda.empty_cache()
+    if only in (None, "bench"):
+        say(json.dumps(bench_path(dev, card, walk_rec, idct_rec)))
+        torch.cuda.empty_cache()
+    if only in (None, "quality"):
+        say(json.dumps(quality_path(dev, card, idct_rec)))
     recs = [r for r in (walk_rec, idct_rec) if r is not None]
+    for r in recs:
+        r["launch_floor_ms"] = floor
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"kernels' build included")
     say(json.dumps({"kernels": recs}))

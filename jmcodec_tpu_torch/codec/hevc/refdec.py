@@ -155,16 +155,24 @@ class HevcRefDecoder:
     every picture is decoded on the host. use_native=False skips the
     native parser: every plan comes from the Python parse.
 
+    With plan_only=True the pixel math is skipped: each picture, which
+    must be an I picture, is parsed in Python into a HevcFramePlan
+    (without the inter fields) appended to self.plans, and nothing enters
+    the DPB or the output.
+
     decode and flush return the frames output since the last call, in
     output order, cropped to the conformance window; the decoder keeps
     none of them."""
 
-    def __init__(self, device_recon=None, use_native: bool = True):
+    def __init__(self, device_recon=None, use_native: bool = True,
+                 plan_only: bool = False):
         self.sps: Dict[int, HevcSPS] = {}
         self.pps: Dict[int, HevcPPS] = {}
         self._out: List[tuple] = []     # output, not yet returned
         self.device_recon = device_recon
         self.use_native = use_native
+        self.plan_only = plan_only
+        self.plans: List[HevcFramePlan] = []
         # DPB + POC state (8.3.1 / 8.3.2)
         self.dpb: List[RefPic] = []
         self.prev_poc_lsb = 0
@@ -318,6 +326,8 @@ class HevcRefDecoder:
             raise NotImplementedError("HEVC non-4:2:0/8-bit")
         if pps.tiles_enabled:
             raise NotImplementedError("HEVC tiles")
+        if hdr0.slice_type != I_SLICE and self.plan_only:
+            raise NotImplementedError("HEVC inter device plan")
         if hdr0.is_idr:
             # output everything pending, then an empty reference set
             self._bump(0)
@@ -326,6 +336,9 @@ class HevcRefDecoder:
             self.dpb = []
         poc = self._compute_poc(hdr0, sps)
         self.n_pictures += 1
+        if self.plan_only:
+            self.plans.append(self._plan_picture(slices, sps, pps, poc))
+            return
         plan = None
         if self.device_recon is not None:
             plan = self._new_plan(sps, poc, hdr0)
@@ -349,6 +362,24 @@ class HevcRefDecoder:
         rp.crop = (sps.width, sps.height)
         self.dpb.append(rp)
         self._bump(sps.num_reorder_pics)
+
+    def _plan_picture(self, slices, sps, pps, poc) -> HevcFramePlan:
+        """plan_only: an I picture's slices parsed in Python into a new
+        plan, with its bS and SAO parameters."""
+        plan = HevcFramePlan.create(sps)
+        plan.poc = poc
+        plan.is_idr = bool(slices[0][0].is_idr)
+        pic = _Picture(sps, pps, plan=plan)
+        pic.poc = poc
+        with timers.stage("host_parse"):
+            for hdr, rbsp, emu in slices:
+                self._decode_slice(pic, hdr, rbsp, emu)
+            pic.finish_bs()
+        ch, cw = pic.bs_ver.shape
+        plan.bs_ver[:ch, :cw] = pic.bs_ver
+        plan.bs_hor[:ch, :cw] = pic.bs_hor
+        plan.record_sao(pic.sao_params, pic.ctb_w, pic.ctb_h)
+        return plan
 
     @staticmethod
     def _device_takes(plan: HevcFramePlan) -> bool:

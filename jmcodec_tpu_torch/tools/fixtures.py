@@ -16,6 +16,7 @@ import numpy as np
 from ..api.h264_intra import _picture_chunks
 from ..codec.h264.symbols import FrameSymbols
 from ..codec.hevc.plan import ZIDX_NONE, HevcFramePlan
+from .oracle import make_frame
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -40,6 +41,10 @@ ENCODE_DIGESTS = os.path.join(ROOT, "tests", "data",
 # h264_session_stream(): tests/test_torch_tools.py holds the recipe
 TRANSCODE_DIGESTS = os.path.join(ROOT, "tests", "data",
                                  "transcode_1080p.sha256.json")
+# the SHA-256 of the streams jmx_quality's QP sweep makes with the device
+# engine on the CPU (tests/test_torch_quality.py holds the recipe)
+QUALITY_DIGESTS = os.path.join(ROOT, "tests", "data",
+                               "quality_320x240.sha256.json")
 # frames per decode batch, as bench.py's 1080p figures decode them
 BATCH = 16
 H264_BATCH = 32
@@ -54,18 +59,22 @@ def fixture_digests(path: str = DIGESTS) -> list[dict]:
 def _repeated(stream_path: str, digests_path: str, batch: int) -> bytes:
     with open(stream_path, "rb") as f:
         one = f.read()
-    return one * (batch // len(fixture_digests(digests_path)))
+    n, rest = divmod(batch, len(fixture_digests(digests_path)))
+    if n < 1 or rest:
+        raise ValueError(f"{batch} pictures: not a multiple of the "
+                         f"fixture's {len(fixture_digests(digests_path))}")
+    return one * n
 
 
-def fixture_batch_stream() -> bytes:
-    """The HEVC fixture repeated to BATCH pictures (all are IDR)."""
-    return _repeated(FIXTURE, DIGESTS, BATCH)
+def fixture_batch_stream(batch: int = BATCH) -> bytes:
+    """The HEVC fixture repeated to batch pictures (all are IDR)."""
+    return _repeated(FIXTURE, DIGESTS, batch)
 
 
-def h264_fixture_batch_stream() -> bytes:
-    """The H.264 fixture repeated to H264_BATCH pictures (all are IDR; the
+def h264_fixture_batch_stream(batch: int = H264_BATCH) -> bytes:
+    """The H.264 fixture repeated to batch pictures (all are IDR; the
     repeated parameter sets are the same ones)."""
-    return _repeated(H264_FIXTURE, H264_DIGESTS, H264_BATCH)
+    return _repeated(H264_FIXTURE, H264_DIGESTS, batch)
 
 
 def inter_fixture_stream() -> bytes:
@@ -136,21 +145,6 @@ def h264_inter_fixture_stream() -> bytes:
         return f.read()
 
 
-def _gradient_noise_frame(W: int, H: int, seed: int):
-    """tests/util_oracle.make_frame(W, H, seed, "gradient_noise"): a
-    diagonal luma ramp with uniform noise, chroma ramps with noise."""
-    rng = np.random.default_rng(seed)
-    y, x = np.mgrid[0:H, 0:W]
-    Y = np.clip((x * 3 + y * 2) % 256 + rng.integers(-24, 24, (H, W)), 0,
-                255)
-    cy, cx = np.mgrid[0:H // 2, 0:W // 2]
-    U = np.clip(((cx * 2) % 200 + 28)
-                + rng.integers(-8, 8, (H // 2, W // 2)), 0, 255)
-    V = np.clip(((cy * 2) % 200 + 28)
-                + rng.integers(-8, 8, (H // 2, W // 2)), 0, 255)
-    return Y.astype(np.uint8), U.astype(np.uint8), V.astype(np.uint8)
-
-
 def gradient_frame(W: int, H: int, seed: int = 0):
     """util_oracle_free.make_gradient_frame(W, H, seed): a diagonal luma
     ramp with uniform noise and flat chroma, uint8 (Y, U, V) (the content
@@ -168,7 +162,7 @@ def pan_frames(W: int, H: int, n: int, step=(3, 2), seed: int = 3) -> list:
     """tests/test_inter_decode.moving_frames(W, H, n, seed, step): frame i
     [(Y, U, V) uint8] cut at row step[0] * i, column step[1] * i of
     make_frame(W + 64, H + 64, seed, "gradient_noise")."""
-    BY, BU, BV = _gradient_noise_frame(W + 64, H + 64, seed)
+    BY, BU, BV = make_frame(W + 64, H + 64, seed)
     cut = lambda P, y, x, h, w: P[y:y + h, x:x + w].copy()
     out = []
     for i in range(n):
@@ -204,6 +198,23 @@ def encode_fixture_frames(n: int = 3) -> list:
     digests of its decode are in ENCODE_DIGESTS (tests/test_torch_encode.py
     holds the recipe as code and rebuilds them)."""
     return pan_frames(1920, 1080, n)
+
+
+def quality_fixture() -> dict:
+    """QUALITY_DIGESTS: {"size", "frames", "gop", "qps", "streams": {qp:
+    {"sha256", "length"}}, ...}."""
+    with open(QUALITY_DIGESTS) as f:
+        return json.load(f)
+
+
+def quality_streams(fx: dict, device) -> dict:
+    """{qp: the stream} that `jmx_quality --engine device` encodes for
+    quality_fixture()'s size, frame count, GOP and QPs, on device."""
+    from .jmx_quality import moving, our_stream
+    W, H = map(int, fx["size"].split("x"))
+    frames = moving(W, H, fx["frames"])
+    return {qp: our_stream(frames, W, H, qp, fx["gop"], "device", device)
+            for qp in fx["qps"]}
 
 
 def transcode_fixture() -> dict:

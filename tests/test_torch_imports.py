@@ -53,7 +53,8 @@ def test_port_has_its_host_modules():
                  "codec/hevc/cabac.py", "codec/hevc/cabac_tables.py",
                  "codec/h264/refenc.py", "codec/hevc/refenc.py",
                  "codec/hevc/cabac_enc.py", "pipeline/ratecontrol.py",
-                 "pipeline/gop.py"):
+                 "pipeline/gop.py", "tools/oracle.py", "tools/jmx_quality.py",
+                 "tools/bench.py"):
         assert os.path.join("jmcodec_tpu_torch", want) in have, want
 
 
