@@ -48,11 +48,13 @@ non-zero:
      on seeded inputs: N = 700 and N = 1, every qp 0..51, levels over the
      full int16 range, with and without the DC splice, int16 and int32
   7. decode the H.264 fixture on the card: the dequant_idct kernel launched
-     twice (luma, both chroma planes), every frame/plane equal to the
-     committed libavcodec SHA-256 digests, and equal to the same batch
-     decoded with dequant_idct_reference
-  8. timing of the H.264 path as in phase 5, and the dequant_idct kernel
-     against dequant_idct_reference at the path's two shapes
+     twice (luma, both chroma planes), the h264_intra and h264_deblock
+     kernels once per diagonal each (the whole batch in one launch), every
+     frame/plane equal to the committed libavcodec SHA-256 digests, and
+     equal to the same batch decoded with dequant_idct_reference
+  8. timing of the H.264 path as in phase 5, the batch decode's kernel
+     launches and device busy time (torch.profiler), and the dequant_idct
+     kernel against dequant_idct_reference at the path's two shapes
   9. decode the HEVC inter fixture on the card (decode_hevc): the walk
      kernel launched once per scan step that holds a TU and skipped on the
      others, all 48 planes in output order equal to the committed
@@ -65,7 +67,9 @@ non-zero:
      torch.profiler); walk launches taken and skipped; and the walk kernel
      against walk_reference at the middle scan step of the first P picture
  11. decode the H.264 P fixture on the card (decode_h264): the
-     dequant_idct kernel launched twice per picture, all 15 planes equal
+     dequant_idct kernel launched twice per picture, h264_intra once per
+     diagonal of the IDR and per walked diagonal of a P picture,
+     h264_deblock once per diagonal of every picture, all 15 planes equal
      to the committed libavcodec SHA-256 digests; per picture the intra
      scan's diagonals walked and skipped
  12. timing of the H.264 P path over the IDR and the first two P
@@ -74,8 +78,9 @@ non-zero:
      picture); device-only fps (the parsed symbols replayed through
      decode_symbols), with the time at which the host had
      issued the last launch; the kernel launches of the first P picture
-     (one decode under torch.profiler); and the dequant_idct kernel
-     against dequant_idct_reference at the P picture's two shapes
+     (one decode under torch.profiler; under 2,000) and its device busy
+     time; and the dequant_idct kernel against dequant_idct_reference at
+     the P picture's two shapes
  13. the H.264 session at 1080p: DecoderSession() fed the first three
      pictures of the H.264 P fixture (IDR + 2 P) in 1 MiB chunks, frames
      taken with get_frame_device as bench.py's session figures take them;
@@ -181,9 +186,35 @@ non-zero:
      table and BD-rate against x264 (its streams the digests' again);
      where it does not, one line saying so with make's or ldd's error
 
+ 27. the H.264 scan kernels (h264_intra, h264_deblock) against their plain
+     versions (recon_tiles._intra_tile_scan, _deblock_tile_scan), bit for
+     bit, on the arguments the decode gives them at phase 7's batch of 32
+     (the all-intra scans: one bS pattern for every frame) and at phase
+     11's first P picture (seeded with its MC tiles, its walk, its per-edge
+     bS); per kernel and shape the ms per launch (median over the
+     diagonals of each launch's device time in a torch.profiler trace of
+     the kernel's scan, over the launches the trace holds: the profiler
+     may drop a few records), the plain version's wall per launch it
+     stands for, the bound and the launches a decode. Every H.264 path above also
+     checks that both kernels ran (the encoder's P frames, all inter
+     macroblocks, walk no intra diagonal; its device engine deblocks each
+     P frame, one launch a diagonal), and their kernels' records count the
+     launches of every path driven
+
+With --sp N (N > 1; needs N cards) only phases 1-2 and this one run:
+
+ 28. the row-sharded decode of phase 22 at sp = N, one process and card a
+     rank (N NCCL ranks, parallel/distributed.launch): the H.264 P
+     fixture's IDR and its second P picture, each rank's band through both
+     scan kernels with the lane above it exchanged as a halo; on every
+     rank all 6 planes equal the libavcodec digests, h264_intra launched
+     once a walked diagonal and h264_deblock once a diagonal, dequant_idct
+     twice a picture, no lane roll of the torch scans; each rank's walls
+
 With --only hevc, --only h264, --only hevc_inter, --only h264_inter,
 --only session, --only hevc_host, --only encode, --only parallel,
---only tools, --only bench or --only quality just that path is driven
+--only tools, --only bench, --only quality or --only h264_scan (phase 27
+alone) just that path is driven
 (phase 3 with either HEVC path, the session, the host route, the parallel
 layer, the tools and the bench, phase 6 with either H.264 path, the
 session, the encoder, the parallel layer, the tools, the bench and the
@@ -195,7 +226,8 @@ its launch (bound_ms): the larger of its bytes (each input read once, each
 output written once) over the HBM rate and its operations, counted from
 this run's inputs, over the int32 ALU rate; and launch_floor_ms, the time
 an empty kernel (torch.cuda._sleep(0)) takes from launch to completion,
-timed as the kernels' ms are (event_ms).
+timed as the kernels' ms are (event_ms; the scan kernels' ms are device
+times from the profiler, phase 27).
 
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Needs no arguments and no network.
@@ -236,6 +268,7 @@ from jmcodec_tpu_torch.codec.h264.devenc import DeviceH264Encoder
 from jmcodec_tpu_torch.codec.hevc.refdec import HevcRefDecoder
 from jmcodec_tpu_torch.kernels import _build
 from jmcodec_tpu_torch.kernels import encode_tiles as ET
+from jmcodec_tpu_torch.kernels import h264_scan as HS
 from jmcodec_tpu_torch.kernels import hevc_tables as HT
 from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
@@ -244,6 +277,7 @@ from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
 from jmcodec_tpu_torch.parallel.decode_sharded import (
     _synthetic_symbols, decode_symbols_sharded, run_transcode_real_step)
+from jmcodec_tpu_torch.parallel.distributed import launch, with_counts
 from jmcodec_tpu_torch.parallel.framepp import (decode_plans_pipelined,
                                                 default_devices)
 from jmcodec_tpu_torch.parallel.mesh import ShardingConfig, build_mesh
@@ -307,6 +341,8 @@ SHAPES = {"luma": (64, 32, False, True, BATCH * 17),
           "chroma": (32, 16, True, False, 2 * BATCH * 17)}
 # lanes of one 1080p picture at CTU 64, as the inter path walks them
 INTER_LANES = {"luma": 17, "chroma": 34}
+# the H.264 scans' diagonals at 1080p: 120 x 68 macroblocks, mbw + 2(mbh-1)
+STEPS_1080P = 120 + 2 * (68 - 1)
 
 
 def say(*a):
@@ -471,6 +507,27 @@ def check_digests(planes, digests, what):
 def reset_counts():
     HW.LAUNCHES = 0
     ID.LAUNCHES = 0
+    HS.INTRA_LAUNCHES = 0
+    HS.DEBLOCK_LAUNCHES = 0
+
+
+# the H.264 scan kernels' launches over every path this run drives (their
+# records' "launches")
+SCANS = {"h264_intra": 0, "h264_deblock": 0}
+
+
+def scan_counts(what, intra=">0", deblock=">0"):
+    """The H.264 scan kernels' launches since reset_counts(), added to
+    SCANS. Each must be the given count, above 0 (">0": a path that
+    decodes an H.264 picture on the card runs the kernel), or anything
+    ("any": where a path's pictures may or may not hold an intra
+    macroblock on the card). Returns (intra, deblock) launches."""
+    got = (HS.INTRA_LAUNCHES, HS.DEBLOCK_LAUNCHES)
+    for name, n, want in zip(SCANS, got, (intra, deblock)):
+        ok = {">0": n > 0, "any": True}.get(want, n == want)
+        check(ok, f"{what}: {name} launched {n} times, want {want}")
+        SCANS[name] += n
+    return got
 
 
 def hevc_path(dev, card, err):
@@ -716,6 +773,8 @@ def h264_path(dev, card, err):
     check(launches == 2, f"{launches} dequant_idct launches, want 2 (luma, "
                          f"both chroma planes)")
     check(HW.LAUNCHES == 0, "hevc_walk launched on the H.264 path")
+    steps = mbw + 2 * (mbh - 1)
+    scans = scan_counts("phase 7", steps, steps)
     check(out[0].dtype == torch.uint8
           and tuple(out[0].shape) == (H264_BATCH, mbh * 16, mbw * 16),
           f"Y {out[0].dtype} {tuple(out[0].shape)}")
@@ -727,11 +786,12 @@ def h264_path(dev, card, err):
         e = max_abs(a, b)
         err = max(err, e)
         check(e == 0, f"decode != dequant_idct_reference decode ({plane})")
-    steps = mbw + 2 * (mbh - 1)
     say(f"phase 7: {H264_BATCH}x {w}x{h} H.264: {steps} wavefront steps of "
-        f"{mbh} lanes per frame, dequant_idct launched {launches} times; "
-        f"all {H264_BATCH * 3} planes match the libavcodec SHA-256 digests "
-        f"and the dequant_idct_reference decode")
+        f"{mbh} lanes per frame, dequant_idct launched {launches} times, "
+        f"h264_intra {scans[0]} and h264_deblock {scans[1]} (once per "
+        f"diagonal, all {H264_BATCH} frames in each launch); all "
+        f"{H264_BATCH * 3} planes match the libavcodec SHA-256 digests and "
+        f"the dequant_idct_reference decode")
     del ref, out
 
     # ---- phase 8: timing ----
@@ -746,6 +806,7 @@ def h264_path(dev, card, err):
     e2e()
     t_e2e, _ = sync_time(e2e, REPS)
     t_dev, t_issued = sync_time(device_only, REPS)
+    n_kernels, busy = kernel_busy(device_only)
 
     shapes, e = idct_shapes(args)
     err = max(err, e)
@@ -755,7 +816,9 @@ def h264_path(dev, card, err):
         f"{H264_BATCH / t_dev:.2f} fps ({t_dev * 1000:.1f} ms); the host "
         f"had issued the device-only decode's last launch at "
         f"{t_issued * 1000:.1f} ms, the device finished "
-        f"{(t_dev - t_issued) * 1000:.1f} ms later")
+        f"{(t_dev - t_issued) * 1000:.1f} ms later; under torch.profiler "
+        f"the batch's decode launches {n_kernels} kernels and keeps the "
+        f"device busy {busy:.1f} ms")
     say_idct_shapes("phase 8", card, shapes)
     rec = idct_record(shapes, launches, err)
     rec["launches_h264_intra"] = launches
@@ -763,7 +826,9 @@ def h264_path(dev, card, err):
                "batch": H264_BATCH, "e2e_fps": H264_BATCH / t_e2e,
                "device_fps": H264_BATCH / t_dev,
                "device_only_issued_ms": t_issued * 1000,
-               "device_only_wall_ms": t_dev * 1000, "card": card}
+               "device_only_wall_ms": t_dev * 1000,
+               "kernel_launches": n_kernels, "device_busy_ms": busy,
+               "scan_launches": scans, "card": card}
     return rec, figures
 
 
@@ -936,14 +1001,22 @@ def h264_inter_path(dev, card, idct_rec, err):
              if fs.mv is not None]
     walked = sum(sum(w) for w in walks)
     steps = sum(len(w) for w in walks)
+    n_steps = lambda fs: fs.mb_width + 2 * (fs.mb_height - 1)
+    scans = scan_counts(
+        "phase 11", walked + sum(n_steps(fs) for fs, _ in pics
+                                 if fs.mv is None),
+        sum(n_steps(fs) for fs, _ in pics if fs.deblock_enabled))
     sps = pics[0][1]
     say(f"phase 11: {n} pictures {sps.width}x{sps.height} H.264 (I, then "
         f"{len(walks)} P with {[fs.num_ref_l0 for fs, _ in pics[1:]]} "
         f"references): dequant_idct launched {launches} times (2 a "
         f"picture); the P pictures' intra scans walked "
         f"{[sum(w) for w in walks]} and skipped "
-        f"{[len(w) - sum(w) for w in walks]} of {len(walks[0])} diagonals; "
-        f"all {3 * n} planes match the libavcodec SHA-256 digests")
+        f"{[len(w) - sum(w) for w in walks]} of {len(walks[0])} diagonals "
+        f"(h264_intra launched {scans[0]} times: the IDR's diagonals and "
+        f"the walked ones; h264_deblock {scans[1]}: every diagonal of every "
+        f"picture); all {3 * n} planes match the libavcodec SHA-256 "
+        f"digests")
     del frames
 
     # ---- phase 12: timing, over the IDR and the first two P pictures ----
@@ -958,7 +1031,8 @@ def h264_inter_path(dev, card, idct_rec, err):
     refs, ids = dpb.list0(fs1)
     one_p = lambda: RT.decode_frame_symbols_inter(fs1, refs, ref_ids=ids)
     t_p, t_p_issued = sync_time(one_p, 1)
-    n_kernels = kernel_launches(one_p)
+    n_kernels, busy = kernel_busy(one_p)
+    check(n_kernels < 2000, f"one P picture launches {n_kernels} kernels")
     shapes, e = idct_shapes(RC.stack_symbols([fs1], dev))
     err = max(err, e)
     say(f"phase 12 [{card}]: end-to-end {n / t_e2e:.3f} fps "
@@ -968,7 +1042,8 @@ def h264_inter_path(dev, card, idct_rec, err):
         f"the host had issued the last launch at {t_issued * 1000:.1f} ms, "
         f"the device finished {(t_dev - t_issued) * 1000:.1f} ms later; the "
         f"first P picture alone {t_p * 1000:.1f} ms (last launch issued at "
-        f"{t_p_issued * 1000:.1f} ms), {n_kernels} kernel launches")
+        f"{t_p_issued * 1000:.1f} ms), {n_kernels} kernel launches, the "
+        f"device busy {busy:.1f} ms")
     say_idct_shapes("phase 12", card, shapes)
 
     inter = {"launches_h264_inter": launches}
@@ -987,8 +1062,10 @@ def h264_inter_path(dev, card, idct_rec, err):
                "first_p_ms": t_p * 1000,
                "first_p_issued_ms": t_p_issued * 1000,
                "first_p_kernel_launches": n_kernels,
+               "first_p_device_busy_ms": busy,
                "intra_steps_walked": walked,
-               "intra_steps_skipped": steps - walked, "card": card}
+               "intra_steps_skipped": steps - walked,
+               "scan_launches": scans, "card": card}
     return idct_rec, figures
 
 
@@ -1043,12 +1120,14 @@ def session_h264_path(dev, card):
     check(n_dev == n, f"{n_dev} of {n} pictures decoded on the device")
     check(launches == 2 * n, f"{launches} dequant_idct launches for {n} "
                              f"pictures, want 2 each")
+    scans = scan_counts("phase 13")
     check_session_frames(frames, digests, dev, "h264 session")
     h, w = frames[0][0].shape
     say(f"phase 13 [{card}]: H.264 session, {n} pictures {w}x{h} (IDR + "
         f"{n - 1} P) in 1 MiB chunks: {n / dt:.3f} fps end to end "
         f"({dt * 1000:.1f} ms), frames_device {n_dev}, dequant_idct "
-        f"launched {launches} times; all {3 * n} planes match the "
+        f"launched {launches} times, h264_intra {scans[0]}, h264_deblock "
+        f"{scans[1]}; all {3 * n} planes match the "
         f"libavcodec SHA-256 digests; stage timers (host issue, ms) "
         f"{stages}")
     return launches, {"slice": "h264 1080p session", "pictures": n,
@@ -1109,6 +1188,7 @@ def session_small_streams(card):
     check(HW.LAUNCHES == 0, "hevc_walk launched on the H.264 session")
     check(launches == 2 * sum(d for d, _ in paths.values()),
           f"{launches} dequant_idct launches for the small streams")
+    scan_counts("phase 15")
     stream, digests = session_fixture(CORPUS_FIXTURE)
     outcomes = []
     logger.setLevel(logging.ERROR)       # a dropped picture warns
@@ -1361,6 +1441,9 @@ def encode_session_path(dev, card):
         f["dequant_idct_launches"] == (2 if f["frame"] else 0)
         for f in per_frame), f"{launches} dequant_idct launches for "
                              f"{n_p} P frames, want 2 each")
+    # a P frame's recon deblocks every diagonal; its macroblocks are all
+    # inter, so its intra scan walks none (the IDR is encoded on the host)
+    scans = scan_counts("phase 18", 0, n_p * (enc.mbw + 2 * (enc.mbh - 1)))
     stream = b"".join(b for b, _ in packets)
     sha = hashlib.sha256(stream).hexdigest()
     check({"sha256": sha, "length": len(stream)} == fx["stream"],
@@ -1405,10 +1488,10 @@ def encode_session_path(dev, card):
     # one more P frame: the deblock scan's share (a synchronise around
     # each recon stage), then its launches under torch.profiler
     stages = ("_residuals", "_mc_luma_batched", "_mc_chroma_batched",
-              "_bs_planes", "_intra_tile_scan", "_deblock_tile_scan")
+              "_bs_planes", "intra_tiles", "deblock_tiles")
     t_p, walls = staged_p_frame(enc, frames[-1], qp, stages)
     n_kernels, busy = kernel_busy(lambda: enc.encode_p(*frames[-1], qp=qp))
-    share = walls["_deblock_tile_scan"] / t_p
+    share = walls["deblock_tiles"] / t_p
     steady = per_frame[2]["wall_ms"]
     say(f"phase 18 [{card}]: EncoderSession(EncoderParams()) on the card, "
         f"{len(frames)} frames {enc.cfg.width}x{enc.cfg.height} I420 "
@@ -1416,7 +1499,8 @@ def encode_session_path(dev, card):
         f"fixture's SHA-256, keyframes {[k for _, k in packets]}; the "
         f"port's decode_h264 on the card equals the libavcodec digests and "
         f"the encoder's recon, plane by plane; dequant_idct launched "
-        f"{launches} times (2 a P frame)")
+        f"{launches} times (2 a P frame), h264_intra {scans[0]}, "
+        f"h264_deblock {scans[1]} (every diagonal of each P frame)")
     for f in per_frame:
         st = f["stages_ms"]
         pack = st.get("enc_pack")
@@ -1472,6 +1556,14 @@ def encode_small_sessions(card):
             if device is None:
                 torch.cuda.synchronize()
                 launches += ID.LAUNCHES
+                # the device engine rebuilds every P frame through the
+                # deblock kernel, one launch a diagonal
+                check(isinstance(sess._enc, DeviceH264Encoder),
+                      f"{name}: not on the device engine")
+                n_p = sum(i % kw["gop_len"] != 0 for i in range(n))
+                mbw, mbh = -(-kw["width"] // 16), -(-kw["height"] // 16)
+                scan_counts(f"phase 19 {name}", "any",
+                            n_p * (mbw + 2 * (mbh - 1)))
         check(got[0] == got[1], f"{name}: the card's packets differ from "
                                 f"the CPU's")
         keys = [k for _, k in got[0]]
@@ -1532,6 +1624,8 @@ def sharded_decode_path(dev, card):
     Y, U, V = decode_symbols_sharded(fss, cfg, mesh)
     launches = ID.LAUNCHES
     check(launches == 2, f"{launches} dequant_idct launches, want 2")
+    steps = mbw + 2 * (mbh - 1)
+    scans = scan_counts("phase 20", steps, steps)
     check(Y.shape == (H264_BATCH, mbh * 16, mbw * 16), f"Y {Y.shape}")
     check_digests((Y[:, :h, :w], U[:, :h // 2, :w // 2],
                    V[:, :h // 2, :w // 2]), digests, "sharded h264")
@@ -1549,6 +1643,7 @@ def sharded_decode_path(dev, card):
     step_launches = ID.LAUNCHES
     check(step_launches == 2, f"{step_launches} dequant_idct launches in "
                               f"the transcode step, want 2")
+    scan_counts("phase 20 step", steps, steps)
     zc, bc, sc = _encode_forward(_downscale2x_with_halo(
         torch.from_numpy(Y).to(torch.int32), mesh.get_group("sp")), 30)
     check(np.array_equal(z, zc.numpy()) and (bits, ssd) == (int(bc), int(sc)),
@@ -1560,7 +1655,9 @@ def sharded_decode_path(dev, card):
     shapes, e = idct_shapes(args)
     say(f"phase 20 [{card}]: decode_symbols_sharded of {H264_BATCH}x "
         f"{w}x{h} H.264 at world 1 (one-rank NCCL group): dequant_idct "
-        f"launched {launches} times, all {3 * H264_BATCH} planes match the "
+        f"launched {launches} times, the scan kernels {scans[0]} + "
+        f"{scans[1]} (the one-rank group runs the kernels), all "
+        f"{3 * H264_BATCH} planes match the "
         f"libavcodec digests and the dequant_idct_reference decode; "
         f"{H264_BATCH / t_dec:.2f} fps ({t_dec * 1000:.1f} ms: the "
         f"symbols' upload, the decode, the all_gather and the copy to the "
@@ -1660,6 +1757,7 @@ def row_sharded_path(dev, card):
     t_idr = time.perf_counter() - t0
     n_idr = ID.LAUNCHES
     check(n_idr == 2, f"{n_idr} dequant_idct launches for the IDR")
+    scan_counts("phase 22 IDR")
     check_digests([crop(p, s)[None] for p, s in zip(idr, (1, 2, 2))],
                   digests[:1], "row-sharded IDR")
     plain = RT.decode_frames_batch(
@@ -1689,6 +1787,7 @@ def row_sharded_path(dev, card):
     t_p = time.perf_counter() - t0
     n_p = ID.LAUNCHES
     check(n_p == 2, f"{n_p} dequant_idct launches for the P picture")
+    scan_counts("phase 22 P", "any", ">0")
     check_digests([crop(p, s)[None] for p, s in zip(p2, (1, 2, 2))],
                   digests[2:3], "row-sharded P")
     mvy2 = int(np.abs(f2.mv[..., 1]).max())
@@ -1786,6 +1885,7 @@ def tools_path(dev, card, walk_rec, idct_rec):
         recs = jmx_transcode.transcode(src, job, qp=fx["qp"],
                                        scale=fx["scale"])
         idct_23 = ID.LAUNCHES
+        scan_counts("phase 23 jmx_transcode")
         with open(os.path.join(job, "out.h264"), "rb") as f:
             stream = f.read()
         sha = hashlib.sha256(stream).hexdigest()
@@ -1856,18 +1956,25 @@ def bench_path(dev, card, walk_rec, idct_rec):
                             fixture_digests(H264_DIGESTS), dev, reps=1)
     dt = time.perf_counter() - t0
     walk, idct = HW.LAUNCHES, ID.LAUNCHES
-    check(hevc["launches"] == {"hevc_walk": 124, "dequant_idct": 0},
+    # bench_h264 decodes the batch three times (checked, end to end,
+    # device-only), each a launch of each scan kernel per diagonal
+    steps = STEPS_1080P
+    scan_counts("phase 25", 3 * steps, 3 * steps)
+    check(hevc["launches"] == {"hevc_walk": 124, "dequant_idct": 0,
+                               "h264_intra": 0, "h264_deblock": 0},
           f"bench_hevc launches {hevc['launches']}")
-    check(h264["launches"] == {"hevc_walk": 0, "dequant_idct": 2},
+    check(h264["launches"] == {"hevc_walk": 0, "dequant_idct": 2,
+                               "h264_intra": steps, "h264_deblock": steps},
           f"bench_h264 launches {h264['launches']}")
     say(f"phase 25 [{card}]: tools/bench.py, one repeat each: bench_hevc "
         f"{hevc['frames']} frames {hevc['fps']:.2f} fps end to end, "
         f"{hevc['device_fps']:.2f} device-only, hevc_walk launched 124 "
         f"times in its checked decode; bench_h264 {h264['frames']} frames "
         f"{h264['fps']:.3f} fps end to end, {h264['device_fps']:.3f} "
-        f"device-only, dequant_idct launched twice; every plane equals the "
-        f"libavcodec digests; {dt:.1f} s; launches in all: hevc_walk "
-        f"{walk}, dequant_idct {idct}")
+        f"device-only, dequant_idct launched twice and the scan kernels "
+        f"{steps} times each; every plane equals the libavcodec digests; "
+        f"{dt:.1f} s; launches in all: hevc_walk {walk}, dequant_idct "
+        f"{idct}")
     for rec, n in ((walk_rec, walk), (idct_rec, idct)):
         if rec is not None:
             rec["launches_bench"] = n
@@ -1901,6 +2008,7 @@ def quality_path(dev, card, idct_rec):
     dt = time.perf_counter() - t0
     launches = ID.LAUNCHES
     check(HW.LAUNCHES == 0, "hevc_walk launched by the encoder")
+    scan_counts("phase 26", "any", ">0")
     n_p = sum(1 for i in range(fx["frames"]) if i % fx["gop"])
     check(launches == 2 * n_p * len(fx["qps"]),
           f"{launches} dequant_idct launches for {n_p} P frames a QP")
@@ -1941,6 +2049,263 @@ def quality_path(dev, card, idct_rec):
             "quality": result, "card": card}
 
 
+def scan_capture(fn):
+    """fn() with RT.intra_tiles / RT.deblock_tiles recording their
+    arguments: (fn's result, {"intra": args, "deblock": args})."""
+    cap, saved = {}, (RT.intra_tiles, RT.deblock_tiles)
+
+    def rec(key, kernel):
+        def run(*a, group=None):
+            check(group is None, "phase 27 drives no process group")
+            cap[key] = a
+            return kernel(*a)
+        return run
+
+    RT.intra_tiles, RT.deblock_tiles = (rec("intra", saved[0]),
+                                        rec("deblock", saved[1]))
+    try:
+        out = fn()
+    finally:
+        RT.intra_tiles, RT.deblock_tiles = saved
+    return out, cap
+
+
+def timed(fn):
+    """(fn(), its wall in s, ended by a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def kernel_ms(fn, name):
+    """(fn()'s result, the device ms of each launch of the CUDA kernel
+    whose name holds `name`) of one fn() run under torch.profiler."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ms = [(e[3] - e[2]) / 1e3 for e in raw_events(prof)
+          if e[1] == DeviceType.CUDA and name in e[0]]
+    return out, ms
+
+
+def intra_bound(ia, steps):
+    """Bound of one h264_intra launch, the mean over the launched
+    diagonals `steps`. Bytes per macroblock it reconstructs (a valid lane
+    that is not an inter macroblock of a P picture): the residual (1,536
+    B), modes and the six per-macroblock scalars (88 B) and the 71
+    neighbour samples (284 B) in, the tiles (1,536 B) out; per launched
+    lane 8 B (valid, class). Operations: 8 per luma sample and 6 per chroma
+    sample (prediction taps, residual, clip)."""
+    cls, valid = ia[4][:, steps], ia[10][steps] == 1
+    act = valid & (cls != 3) if ia[11] is not None else valid.expand_as(cls)
+    n_mb = int(act.sum())
+    nb = n_mb * (1536 + 88 + 284 + 1536) + 8 * int(valid.sum()) * cls.shape[0]
+    return bound_ms(nb / len(steps), n_mb * (256 * 8 + 128 * 6) / len(steps))
+
+
+def deblock_bound(da):
+    """Bound of one h264_deblock launch, the mean over the diagonals.
+    Bytes per valid macroblock: its tiles in and out (3,072 B), the left
+    tile's last four luma / two chroma columns and the top tile's last
+    rows in and out where the neighbour exists (768 B each), 12 B of QP,
+    128 B of bS per lane (per frame unless one pattern serves every
+    frame), the offsets. Operations: 30 per luma line and 20 per chroma
+    line of a sub-edge with bS > 0 on a valid lane."""
+    nf, n_steps, lanes = da[3].shape
+    valid = da[4] == 1
+    t = torch.arange(n_steps, device=valid.device)[:, None]
+    k = torch.arange(lanes, device=valid.device)[None, :]
+    n_own = int(valid.sum())
+    n_nb = int((valid & (t - 2 * k > 0)).sum() + (valid & (k > 0)).sum())
+    bs_frames = da[9].shape[0]
+    nb = (nf * (n_own * (3072 + 12) + n_nb * 768) + bs_frames * n_own * 128
+          + 4 * valid.numel() + 16 * nf)
+    on = lambda b: (b > 0) & valid[None, :, :, None, None]
+    luma = sum(int(on(b).sum()) for b in da[9:11]) * 4
+    chroma = sum(int(on(b)[..., (0, 2), :].sum()) for b in da[9:11]) * 2 * 2
+    ops = (30 * luma + 20 * chroma) * (nf // bs_frames)
+    return bound_ms(nb / n_steps, ops / n_steps)
+
+
+def scan_shape(key, cap, card, floor):
+    """Phase 27 at one shape: both kernels against their plain versions
+    on the captured arguments, bit for bit; each kernel's ms per launch
+    (median over its launches), the plain version's wall per launch it
+    stands for, and the bound. Returns {kernel: (ms, plain ms, bound,
+    launches, err)}."""
+    ia, da = cap["intra"], cap["deblock"]
+    walk = ia[12]
+    steps = [t for t in range(ia[10].shape[0]) if walk is None or walk[t]]
+    out = {}
+    # the profiler may drop a few kernel records of a run (phase 8's
+    # count too): the median is over the launches it traced
+    got, ms = kernel_ms(lambda: HS.intra_tiles(*ia), "h264_intra_kernel")
+    check(0 < len(ms) <= len(steps), f"phase 27 {key}: {len(ms)} h264_intra "
+                                     f"launches traced of {len(steps)}")
+    want, t_plain = timed(lambda: RT._intra_tile_scan(*ia))
+    err = max(max_abs(g, w) for g, w in zip(got, want))
+    check(err == 0, f"phase 27 {key}: h264_intra != _intra_tile_scan")
+    out["h264_intra"] = (statistics.median(ms), t_plain * 1e3 / len(steps),
+                         intra_bound(ia, steps), len(steps), err, len(ms))
+    del got, want
+
+    n_steps = da[4].shape[0]
+    got, ms = kernel_ms(lambda: HS.deblock_tiles(*da), "h264_deblock_kernel")
+    check(0 < len(ms) <= n_steps, f"phase 27 {key}: {len(ms)} h264_deblock "
+                                  f"launches traced of {n_steps}")
+    want, t_plain = timed(lambda: RT._deblock_tile_scan(*da))
+    err = max(max_abs(g, w) for g, w in zip(got, want))
+    check(err == 0, f"phase 27 {key}: h264_deblock != _deblock_tile_scan")
+    out["h264_deblock"] = (statistics.median(ms), t_plain * 1e3 / n_steps,
+                           deblock_bound(da), n_steps, err, len(ms))
+    del got, want
+    for name, (k_ms, p_ms, bound, n, e, traced) in out.items():
+        say(f"phase 27 [{card}]: {name} at the {key} ({n} launches a "
+            f"decode, F={ia[4].shape[0]}, {ia[4].shape[2]} lanes): kernel "
+            f"{k_ms:.4f} ms a launch (median of the {traced} traced), "
+            f"plain version "
+            f"{p_ms:.3f} ms a launch (its wall over the scan), bound "
+            f"{bound[0]:.5f} ms ({bound[2]}), launch floor {floor:.5f} "
+            f"ms, max_abs_err {e}")
+    return out
+
+
+def h264_scan_path(dev, card, floor):
+    """Phase 27: the H.264 scan kernels at phase 7's batch of 32 and at
+    phase 11's first P picture (floor: phase 2's launch floor). Returns
+    their records (launch_floor_ms is added with the others')."""
+    workers = os.cpu_count() or 1
+    fss = [fs for fs, _ in parse_h264_intra_symbols(
+        h264_fixture_batch_stream(), workers=workers)]
+    mbh, mbw = fss[0].mb_height, fss[0].mb_width
+    args = RC.stack_symbols(fss, dev)
+    reset_counts()
+    _, cap = scan_capture(lambda: RT.decode_frames_batch(
+        mbh, mbw, *args, deblock=True))
+    torch.cuda.synchronize()
+    steps = mbw + 2 * (mbh - 1)
+    n_batch = scan_counts("phase 27 batch", steps, steps)
+    check(cap["deblock"][9].shape[0] == 1 and cap["intra"][11] is None,
+          "the batch's scans are not the all-intra ones")
+    shapes = {"batch": scan_shape(f"batch of {len(fss)}", cap, card, floor)}
+    del args, cap
+    torch.cuda.empty_cache()
+
+    pics = list(parse_h264(h264_inter_fixture_stream()))
+    dpb = DeviceDPB()
+    decode_symbols(pics[:1], dev, dpb=dpb)
+    fs1 = pics[1][0]
+    refs, ids = dpb.list0(fs1)
+    torch.cuda.synchronize()
+    reset_counts()
+    _, cap = scan_capture(lambda: RT.decode_frame_symbols_inter(
+        fs1, refs, ref_ids=ids))
+    torch.cuda.synchronize()
+    walked = sum(RT.intra_steps(fs1.mb_class))
+    n_p = scan_counts("phase 27 P picture", walked, steps)
+    check(cap["intra"][11] is not None and 0 < walked < steps,
+          "the P picture's intra scan skips nothing")
+    shapes["p"] = scan_shape("first P picture", cap, card, floor)
+    del cap, refs, dpb
+    torch.cuda.empty_cache()
+
+    recs = []
+    for name, src, line in (("h264_intra", "h264_intra.cu", 256),
+                            ("h264_deblock", "h264_deblock.cu", 787)):
+        per = {k: v[name] for k, v in shapes.items()}
+        mean = lambda i: statistics.mean(v[i] for v in per.values())
+        bounds = [v[2] for v in per.values()]
+        rec = {"name": name, "route": "cuda",
+               "source": f"jmcodec_tpu_torch/csrc/{src}",
+               "replaces": f"jmcodec_tpu/kernels/recon_tiles.py:{line}",
+               "launches": 0, "max_abs_err": max(v[4] for v in per.values()),
+               "ms": mean(0), "plain_ms": mean(1),
+               "bound_ms": statistics.mean(b[0] for b in bounds),
+               "bound_by": max(bounds)[1], "library_ms": None}
+        for key, (k_ms, p_ms, bound, n, _, traced) in per.items():
+            rec.update({f"ms_{key}": k_ms, f"plain_ms_{key}": p_ms,
+                        f"bound_ms_{key}": bound[0],
+                        f"launches_per_decode_{key}": n,
+                        f"launches_traced_{key}": traced})
+        recs.append(rec)
+    say(f"phase 27 [{card}]: launches a decode: the batch of {len(fss)} "
+        f"{n_batch} (intra, deblock), the first P picture {n_p}")
+    return recs
+
+
+def _row_sharded_rank(fi, f2, refs, ids, sp):
+    """One rank of phase 28: the IDR and the P picture f2 (refs: its
+    list-0 references on the host) row-sharded over sp ranks, each run
+    twice (the second timed). Returns [(planes, counts, wall s)] of
+    both."""
+    dev = torch.device("cuda", dist.get_rank())
+    cfg = ShardingConfig(1, sp)
+    refs = [tuple(t.to(dev) for t in r) for r in refs]
+    calls = ((decode_frame_rows_sharded, (fi, None, cfg)),
+             (decode_frame_rows_sharded_inter, (f2, refs, None, cfg, None,
+                                                ids)))
+    out = []
+    for fn, args in calls:
+        fn(*args)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        planes, counts = with_counts(fn, *args)
+        out.append((planes, counts, time.perf_counter() - t0))
+    return out
+
+
+def row_sharded_cards(dev, card, sp):
+    """Phase 28: phase 22's pictures row-sharded over sp cards."""
+    digests = fixture_digests(H264_INTER_DIGESTS)
+    pics = list(parse_h264(h264_session_stream()))
+    (fi, sps), (f1, _), (f2, _) = pics[:3]
+    dpb = DeviceDPB()
+    idr = RT.decode_frame_symbols_device(fi)
+    dpb.add(fi, *idr)
+    dpb.add(f1, *RT.decode_frame_symbols_inter(f1, *dpb.list0(f1)))
+    refs, ids = dpb.list0(f2)
+    refs = [tuple(t.cpu() for t in r) for r in refs]
+    steps = fi.mb_width + 2 * (fi.mb_height - 1)
+    walked = sum(RT.intra_steps(f2.mb_class))
+    t0 = time.perf_counter()
+    ranks = launch(_row_sharded_rank, sp, fi, f2, refs, ids, sp,
+                   device="cuda")
+    wall = time.perf_counter() - t0
+    crop = lambda p, s: p[:sps.height // s, :sps.width // s]
+    for r, rank in enumerate(ranks):
+        for (planes, counts, _), want, what, intra in (
+                (rank[0], digests[:1], "IDR", steps),
+                (rank[1], digests[2:3], "P", walked)):
+            check_digests([crop(p, s)[None] for p, s in zip(planes,
+                                                            (1, 2, 2))],
+                          want, f"rank {r} row-sharded {what} at sp {sp}")
+            got = (counts["h264_intra"], counts["h264_deblock"],
+                   counts["dequant_idct"], counts["lane_exchanges"])
+            check(got == (intra, steps, 2, 0),
+                  f"rank {r} {what}: (h264_intra, h264_deblock, "
+                  f"dequant_idct, lane rolls) {got}, want "
+                  f"{(intra, steps, 2, 0)}")
+    fig = {"slice": f"row-sharded h264 1080p IDR + P, sp {sp}",
+           "idr_ms": [rank[0][2] * 1000 for rank in ranks],
+           "p_ms": [rank[1][2] * 1000 for rank in ranks],
+           "launches_per_rank": {"h264_intra": [steps, walked],
+                                 "h264_deblock": [steps, steps]},
+           "wall_s": wall, "card": card}
+    say(f"phase 28 [{card}]: row-sharded decode at sp = {sp} ({sp} NCCL "
+        f"ranks, one card each) of the H.264 P fixture's IDR and second P "
+        f"picture: on every rank all 6 planes match the libavcodec "
+        f"digests; h264_intra launched {steps} / {walked} times a rank, "
+        f"h264_deblock {steps} / {steps}, no lane roll of the torch scans; "
+        f"IDR {min(fig['idr_ms']):.1f}-{max(fig['idr_ms']):.1f} ms, P "
+        f"{min(fig['p_ms']):.1f}-{max(fig['p_ms']):.1f} ms a rank (the "
+        f"second run); {wall:.1f} s with the ranks' start")
+    return fig
+
+
 def launch_floor_ms():
     """An empty kernel's launch to completion (torch.cuda._sleep(0): one
     thread that returns at once), timed as the kernels' ms are."""
@@ -1953,9 +2318,14 @@ def main() -> int:
     ap.add_argument("--only", choices=("hevc", "h264", "hevc_inter",
                                        "h264_inter", "session",
                                        "hevc_host", "encode", "parallel",
-                                       "tools", "bench", "quality"),
+                                       "tools", "bench", "quality",
+                                       "h264_scan"),
                     help="drive one path only (no complete kernels' record)")
-    only = ap.parse_args().only
+    ap.add_argument("--sp", type=int, default=1,
+                    help="N > 1: only the row-sharded decode on N cards "
+                         "(phase 28)")
+    opts = ap.parse_args()
+    only = opts.only
     t_start = time.perf_counter()
     dev = require_cuda()
     card = gpu_name_power()
@@ -1974,6 +2344,13 @@ def main() -> int:
     say(f"phase 2 [{card}]: an empty kernel (torch.cuda._sleep(0)) takes "
         f"{floor:.5f} ms from launch to completion behind a spin kernel "
         f"(median of 5 runs of 200 launches)")
+
+    if opts.sp > 1:
+        say(json.dumps(row_sharded_cards(dev, card, opts.sp)))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     walk_rec, idct_rec = None, None
     if only in (None, "hevc", "hevc_inter", "session", "hevc_host",
@@ -2017,7 +2394,15 @@ def main() -> int:
         torch.cuda.empty_cache()
     if only in (None, "quality"):
         say(json.dumps(quality_path(dev, card, idct_rec)))
-    recs = [r for r in (walk_rec, idct_rec) if r is not None]
+        torch.cuda.empty_cache()
+    scan_recs = []
+    if only in (None, "h264_scan"):
+        scan_recs = h264_scan_path(dev, card, floor)
+        torch.cuda.empty_cache()
+    for r in scan_recs:
+        r["launches"] = SCANS[r["name"]]
+    say(f"smoke: H.264 scan kernel launches over the paths driven {SCANS}")
+    recs = [r for r in (walk_rec, idct_rec) if r is not None] + scan_recs
     for r in recs:
         r["launch_floor_ms"] = floor
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the "

@@ -15,15 +15,20 @@ by one lane. Stages:
   1b. inter     - P pictures: quarter-pel MC of every 4x4 block from the
                   padded references (weighted where the slice says so)
                   plus the residual, wavefront-free
-  2. intra scan - a Python loop over the diagonals that carries the last
+  2. intra scan - on the card the h264_intra CUDA kernel, one launch per
+                  diagonal (h264_scan.intra_tiles); its plain version here
+                  is a Python loop over the diagonals that carries the last
                   three and emits each finished one; in a P picture the
                   inter macroblocks take their MC tile, and a diagonal
                   without an intra macroblock is its MC tiles, with no
                   launch
-  3. deblock    - a second loop, two diagonals behind: a tile is final once
-                  its right and bottom neighbours have filtered the edges
-                  they share with it; bS is the constant intra pattern
-                  or, in a P picture, per 4-sample edge from _bs_planes
+  3. deblock    - on the card the h264_deblock CUDA kernel, one launch per
+                  diagonal, in place (h264_scan.deblock_tiles); its plain
+                  version is a second loop, two diagonals behind: a tile is
+                  final once its right and bottom neighbours have filtered
+                  the edges they share with it; bS is the constant intra
+                  pattern (intra_bs_tiles for the kernel) or, in a P
+                  picture, per 4-sample edge from _bs_planes
 
 Every tensor has a leading frame axis; the lane axis is the second, and
 the only cross-lane operation is a roll along it, so frames never mix.
@@ -35,6 +40,8 @@ lane_group(group) every lane roll of the scans sends the one boundary lane
 to the neighbouring rank of the ring and takes the other neighbour's,
 instead of wrapping locally; _reconstruct(..., group=group) slices
 the rank's band out of the skewed inputs and gathers the finished tiles.
+On the card the kernels take the same group and exchange the lane above
+each band as a halo tile per diagonal (h264_scan).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from ..ops import deblock as DB
 from ..ops import transform as T
 from ._planes import cell_origins, edge_pad
 from ._tables import device_table as _t
+from .h264_scan import deblock_tiles, intra_tiles, ring_pass
 from .idct import dequant_idct_blocks
 from .recon import (_TR_SRC, _pred_16_batch, _pred_chroma_batch,
                     _pred_i4_batch, _residuals, stack_motion, stack_symbols)
@@ -140,18 +148,9 @@ def _roll_lanes(x, k: int):
     n = 1 if group is None else dist.get_world_size(group)
     if n == 1:
         return torch.roll(x, k, dims=_LANE)
-    me = dist.get_group_rank(group, dist.get_rank())
-    to, frm = (me + k) % n, (me - k) % n
     edge = x.narrow(_LANE, x.shape[_LANE] - 1 if k == 1 else 0, 1)
     wire = lambda t: t.to(torch.uint8) if t.dtype == torch.bool else t
-    send = wire(edge).contiguous()
-    recv = torch.empty_like(send)
-    for req in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, dist.get_global_rank(group, to),
-                       group),
-            dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, frm),
-                       group)]):
-        req.wait()
+    recv = ring_pass(wire(edge).contiguous(), group, k)
     global LANE_EXCHANGES
     LANE_EXCHANGES += 1
     recv = recv.to(x.dtype)
@@ -446,6 +445,23 @@ def _deblock_tile_scan_intra(Yt, Ut, Vt, qp_t, mxs_t, mys_t, valid_t,
                          chroma_qp_off, second_chroma_qp_off, edge_bs)
 
 
+def intra_bs_tiles(mxs_t, mys_t, valid_t, nf: int = 1):
+    """The constant all-intra bS in _deblock_tile_scan's per-edge layout:
+    (bs_v_t, bs_h_t) [nf, n_steps, lanes, 4 (edge), 4 (sub-edge)] int32,
+    4 on a macroblock edge whose neighbour exists (left: mx > 0; top: my >
+    0), 3 on the internal edges, 0 on invalid lanes. With nf = 1 the
+    pattern broadcasts over a batch, in both scans."""
+    v = valid_t == 1
+    b3 = (v.to(_I32) * 3)[:, :, None, None].expand(*v.shape, 4, 4)
+
+    def edges(mb_edge):
+        bs = b3.clone()
+        bs[:, :, 0, :] = ((v & mb_edge).to(_I32) * 4)[..., None]
+        return bs[None].expand(nf, *bs.shape).contiguous()
+
+    return edges(mxs_t > 0), edges(mys_t > 0)
+
+
 def _deblock_tile_scan(Yt, Ut, Vt, qp_t, valid_t, alpha_off, beta_off,
                        chroma_qp_off, second_chroma_qp_off, bs_v_t, bs_h_t):
     """Deblock skewed recon tiles of a P picture (_deblock_scan's layout)
@@ -677,8 +693,9 @@ def _reconstruct(mbh: int, mbw: int, sym, deblock: bool, residual_fn,
     the per-edge bS (bs_v, bs_h) [F, mbh, mbw, 4, 4], and walk is the
     picture's intra_steps. group: a process group whose every rank
     passes the same picture; rank i of n scans and deblocks lanes
-    (macroblock rows) [i * mbh / n, (i + 1) * mbh / n) under lane_group,
-    and every rank gets the whole picture back."""
+    (macroblock rows) [i * mbh / n, (i + 1) * mbh / n), the kernels with
+    the lane above as a halo on the card, the torch scans under
+    lane_group on the CPU, and every rank gets the whole picture back."""
     (mb_class, qp, i4_modes, i16_mode, chroma_mode, luma_coeffs, luma_dc,
      chroma_coeffs, chroma_dc, avail_left, avail_top, avail_topright,
      alpha_off, beta_off, chroma_qp_off, second_chroma_qp_off) = sym
@@ -693,9 +710,11 @@ def _reconstruct(mbh: int, mbw: int, sym, deblock: bool, residual_fn,
         n = dist.get_world_size(group)
         i = dist.get_group_rank(group, dist.get_rank())
         band = slice(i * mbh // n, (i + 1) * mbh // n)
-    mys_b, mxs_b, valid_b = mys[:, band], mxs[:, band], valid[:, band]
+    mys_b, mxs_b = mys[:, band], mxs[:, band]
+    valid_b = valid[:, band].contiguous()
     mys_i, mxs_i = mys_b.long(), mxs_b.long()
-    sk = lambda a: _skew(a, mys_i, mxs_i)
+    # contiguous: the scan kernels take no other layout
+    sk = lambda a: _skew(a, mys_i, mxs_i).contiguous()
 
     resid_y, resid_u, resid_v = _residuals(
         luma_coeffs, luma_dc, chroma_coeffs, chroma_dc, qp, mb_class,
@@ -708,23 +727,40 @@ def _reconstruct(mbh: int, mbw: int, sym, deblock: bool, residual_fn,
         inter_t = tuple(sk(t) for t in tiles)
 
     modes_mb = i4_modes.reshape(-1, mbh, 4, mbw, 4).permute(0, 1, 3, 2, 4)
-    with lane_group(group):
-        Yt, Ut, Vt = _intra_tile_scan(
-            *(sk(r) for r in resid), sk(modes_mb), sk(mb_class),
-            sk(i16_mode), sk(chroma_mode), sk(avail_left), sk(avail_top),
-            sk(avail_topright), valid_b, inter_t, walk)
-        offs = (alpha_off, beta_off, chroma_qp_off, second_chroma_qp_off)
-        if deblock and bs is None:
-            Yt, Ut, Vt = _deblock_tile_scan_intra(Yt, Ut, Vt, sk(qp), mxs_b,
-                                                  mys_b, valid_b, *offs)
-        elif deblock:
-            Yt, Ut, Vt = _deblock_tile_scan(Yt, Ut, Vt, sk(qp), valid_b,
-                                            *offs, sk(bs[0]), sk(bs[1]))
+    intra_in = (*(sk(r) for r in resid), sk(modes_mb), sk(mb_class),
+                sk(i16_mode), sk(chroma_mode), sk(avail_left), sk(avail_top),
+                sk(avail_topright), valid_b, inter_t, walk)
+    offs = tuple(o.to(_I32) for o in (alpha_off, beta_off, chroma_qp_off,
+                                      second_chroma_qp_off))
+    if scan_kernels(dev):
+        Yt, Ut, Vt = intra_tiles(*intra_in, group=group)
+        if deblock:
+            bs_t = intra_bs_tiles(mxs_b, mys_b, valid_b) if bs is None \
+                else (sk(bs[0]), sk(bs[1]))
+            Yt, Ut, Vt = deblock_tiles(Yt, Ut, Vt, sk(qp), valid_b, *offs,
+                                       *bs_t, group=group)
+    else:
+        with lane_group(group):
+            Yt, Ut, Vt = _intra_tile_scan(*intra_in)
+            if deblock and bs is None:
+                Yt, Ut, Vt = _deblock_tile_scan_intra(
+                    Yt, Ut, Vt, sk(qp), mxs_b, mys_b, valid_b, *offs)
+            elif deblock:
+                Yt, Ut, Vt = _deblock_tile_scan(Yt, Ut, Vt, sk(qp), valid_b,
+                                                *offs, sk(bs[0]), sk(bs[1]))
     if group is not None:
         Yt, Ut, Vt = (_gather_lanes(t, group) for t in (Yt, Ut, Vt))
     un = lambda tiles, ts: _unskew_to_frame(
         tiles, mys, mxs, valid, mbh, mbw, ts).to(torch.uint8)
     return un(Yt, 16), un(Ut, 8), un(Vt, 8)
+
+
+def scan_kernels(device) -> bool:
+    """Do the two scans of _reconstruct run as the CUDA kernels
+    (h264_scan.intra_tiles / deblock_tiles)? On a CUDA device, with or
+    without a row-sharded group; CPU tensors take the torch scans. No
+    other route: a failed build or launch raises."""
+    return device.type == "cuda"
 
 
 def _gather_lanes(tiles, group):

@@ -128,18 +128,19 @@ def run_calls(calls) -> list:
 
 
 def with_counts(fn, *args):
-    """(fn(*args), the counts it made): {"dequant_idct", "hevc_walk"}
-    kernel launches and "lane_exchanges" (the row-sharded scans'
-    boundary-lane exchanges) on this rank."""
-    from ..kernels import hevc_walk, idct, recon_tiles
+    """(fn(*args), the counts it made): {"dequant_idct", "hevc_walk",
+    "h264_intra", "h264_deblock"} kernel launches and "lane_exchanges"
+    (the row-sharded scans' boundary-lane exchanges) on this rank."""
+    from ..kernels import h264_scan, hevc_walk, idct, recon_tiles
 
-    mods = {"dequant_idct": idct, "hevc_walk": hevc_walk}
-    before = {k: m.LAUNCHES for k, m in mods.items()}
-    ex = recon_tiles.LANE_EXCHANGES
+    read = lambda: {"dequant_idct": idct.LAUNCHES,
+                    "hevc_walk": hevc_walk.LAUNCHES,
+                    "h264_intra": h264_scan.INTRA_LAUNCHES,
+                    "h264_deblock": h264_scan.DEBLOCK_LAUNCHES,
+                    "lane_exchanges": recon_tiles.LANE_EXCHANGES}
+    before = read()
     out = fn(*args)
-    counts = {k: m.LAUNCHES - before[k] for k, m in mods.items()}
-    counts["lane_exchanges"] = recon_tiles.LANE_EXCHANGES - ex
-    return out, counts
+    return out, {k: v - before[k] for k, v in read().items()}
 
 
 def _scaling_rank(fss, reps: int, device) -> float:

@@ -4,11 +4,13 @@ jmcodec_tpu/parallel/spatial.py.
 
 The wavefront's only cross-lane (cross-row) dataflow is a lane roll of its
 carry (top, top-right and top-left neighbour tiles), and the deblock scan
-reads the row above the same way. Under kernels/recon_tiles.lane_group
-each of those rolls sends one boundary lane to the neighbouring rank and
-takes the other neighbour's (a point-to-point exchange per roll per step)
-while each rank reconstructs its own band; the finished tiles are gathered
-so that every rank returns the whole picture. P pictures first predict
+reads the row above the same way. On the card each rank launches the scan
+kernels on its band with the lane above it as a halo, one tile a diagonal
+sent by the rank above after each launch (kernels/h264_scan.py); on the
+CPU, under kernels/recon_tiles.lane_group, each roll of the torch scans
+sends one boundary lane to the neighbouring rank and takes the other
+neighbour's (a point-to-point exchange per roll per step). The finished
+tiles are gathered so that every rank returns the whole picture. P pictures first predict
 each band from its reference band plus MC_PAD rows of halo sent by the
 neighbouring ranks (_halo_rows).
 

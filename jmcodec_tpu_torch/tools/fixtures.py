@@ -520,3 +520,74 @@ def synth_state_inter(C: int, max_tu: int, B: int, seed: int = 0,
                         tu[b, y4, x4] = (4 * n4).bit_length() - 1
     mode = rng.integers(0, 35, (B, C4, C4)).astype(np.int32)
     return F, Z, resid, tu, mode
+
+
+def _scan_geometry(mbh: int, mbw: int):
+    """(n_steps, mxs, valid) of the H.264 scans' skew (recon_tiles'
+    _skew_geometry): lane k of diagonal d is macroblock (d - 2k, k)."""
+    n_steps = mbw + 2 * (mbh - 1)
+    mxs = np.arange(n_steps)[:, None] - 2 * np.arange(mbh)[None, :]
+    valid = ((mxs >= 0) & (mxs < mbw)).astype(np.int32)
+    return n_steps, mxs, valid
+
+
+def synth_intra_scan(mbh: int, mbw: int, nf: int, seed: int = 0,
+                     inter: bool = False):
+    """Seeded inputs of the H.264 intra scan (recon_tiles._intra_tile_scan
+    and h264_scan.intra_tiles) as numpy int32 arrays, in the scan's
+    argument order: residual tiles (Y, U, V), I4 modes 0..8, class, I16
+    mode, chroma mode, availability left / top / top-right, valid; with
+    inter, then the inter tiles (Y, U, V) and a walk that skips about one
+    diagonal in three. Every class, mode and availability pattern occurs,
+    except that lane 0 (the top macroblock row) has neither top nor
+    top-right, as in every picture; classes are 0-2 (intra) or, with
+    inter, 0-3 (3: inter)."""
+    rng = np.random.default_rng(seed)
+    n_steps, _, valid = _scan_geometry(mbh, mbw)
+    g = (nf, n_steps, mbh)
+    ri = lambda lo, hi, shape: rng.integers(lo, hi, shape).astype(np.int32)
+    resid = [ri(-48, 49, (*g, n, n)) for n in (16, 8, 8)]
+    modes = ri(0, 9, (*g, 4, 4))
+    cls = ri(0, 4 if inter else 3, g)
+    i16, cmode = ri(0, 4, g), ri(0, 4, g)
+    a_l, a_t, a_tr = ri(0, 2, g), ri(0, 2, g), ri(0, 2, g)
+    a_t[:, :, 0] = 0
+    a_tr[:, :, 0] = 0
+    out = [*resid, modes, cls, i16, cmode, a_l, a_t, a_tr, valid]
+    if inter:
+        out += [ri(0, 256, (*g, n, n)) for n in (16, 8, 8)]
+        walk = rng.random(n_steps) > 0.33
+        walk[[0, -1]] = True, False
+        out.append(walk.tolist())
+    return out
+
+
+def synth_deblock_scan(mbh: int, mbw: int, nf: int, seed: int = 0):
+    """Seeded inputs of the H.264 deblock scan (recon_tiles.
+    _deblock_tile_scan and h264_scan.deblock_tiles) as numpy int32 arrays,
+    in the scan's argument order: recon tiles (Y, U, V) of low and mixed
+    contrast (so that most edges pass the alpha/beta tests, strong ones
+    too; invalid lanes 0), qp 0..51, valid, per frame alpha and beta
+    offsets in -12..12 and both chroma QP offsets in -12..12, and bS 0-4
+    per sub-edge of every edge (bs_v, bs_h [nf, n_steps, lanes, 4, 4]),
+    0 on the picture's boundary (mx == 0 left, lane 0 top) and on invalid
+    lanes, as in every picture."""
+    rng = np.random.default_rng(seed)
+    n_steps, mxs, valid = _scan_geometry(mbh, mbw)
+    g = (nf, n_steps, mbh)
+    vm = valid[None, ..., None, None]
+    base = rng.integers(40, 200, (*g, 1, 1))
+    amp = rng.choice([1, 3, 6, 12, 40], (*g, 1, 1))
+
+    def tile(n):
+        noise = rng.integers(-1 << 10, 1 << 10, (*g, n, n)) * amp >> 10
+        return (np.clip(base + noise, 0, 255) * vm).astype(np.int32)
+
+    qp = (rng.integers(0, 52, g) * valid).astype(np.int32)
+    offs = [rng.integers(-6, 7, nf).astype(np.int32) * 2 for _ in range(2)]
+    offs += [rng.integers(-12, 13, nf).astype(np.int32) for _ in range(2)]
+    bs_v, bs_h = (rng.integers(0, 5, (*g, 4, 4)).astype(np.int32)
+                  * valid[None, ..., None, None] for _ in range(2))
+    bs_v[:, :, :, 0, :] *= (mxs > 0)[None, ..., None]
+    bs_h[:, :, 0, 0, :] = 0
+    return [tile(16), tile(8), tile(8), qp, valid, *offs, bs_v, bs_h]

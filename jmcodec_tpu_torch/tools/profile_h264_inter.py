@@ -4,7 +4,8 @@ Parses the committed 1080p P fixture (tools/fixtures.py), decodes the
 pictures before the chosen one on the card to fill the DPB, then decodes
 the chosen P picture (recon_tiles.decode_frame_symbols_inter: symbol
 upload, luma and chroma MC, residuals, bS, the intra scan over the inter
-tiles, the per-edge-bS deblock scan) from its parsed symbols. First
+tiles and the per-edge-bS deblock scan, each a CUDA kernel launched once
+per diagonal) from its parsed symbols. First
 without the profiler: the picture's wall, then the wall of each stage,
 each ended by a synchronise. Then once under torch.profiler: per stage
 the launches and the device's busy time, and the kernels ranked by device
@@ -32,7 +33,7 @@ from jmcodec_tpu_torch.utils.device import gpu_name_power, require_cuda
 
 STAGES = ("stack_symbols", "stack_motion", "_mc_luma_batched",
           "_mc_chroma_batched", "_residuals", "_bs_planes",
-          "_intra_tile_scan", "_deblock_tile_scan")
+          "intra_tiles", "deblock_tiles")
 
 
 def main(argv=None) -> int:

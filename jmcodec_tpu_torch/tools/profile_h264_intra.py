@@ -2,9 +2,10 @@
 
 Decodes the committed fixture at the smoke's batch (tools/fixtures.py)
 from device-resident symbol tensors. First without the profiler: the wall
-time of each stage (residuals, intra scan, deblock scan), each ended by a
-synchronise, and the time the host took to parse and to stack and copy the
-symbols. Then once under torch.profiler: per stage the launches and the
+time of each stage (residuals; the intra and deblock scans, the
+h264_intra and h264_deblock kernels, one launch per diagonal), each ended
+by a synchronise, and the time the host took to parse and to stack and
+copy the symbols. Then once under torch.profiler: per stage the launches and the
 device's busy time, and the kernels ranked by device time. A stage whose
 busy time is far below its wall time waits on the host's issue of
 launches. --frames sets the batch (default: the smoke's). Needs a GPU:
@@ -30,7 +31,7 @@ from jmcodec_tpu_torch.tools.fixtures import (H264_BATCH,
 from jmcodec_tpu_torch.tools.profiling import profile_decode
 from jmcodec_tpu_torch.utils.device import gpu_name_power, require_cuda
 
-STAGES = ("_residuals", "_intra_tile_scan", "_deblock_tile_scan_intra")
+STAGES = ("_residuals", "intra_tiles", "deblock_tiles")
 
 
 def _staged(name, fn, walls):
