@@ -49,7 +49,7 @@ non-zero:
      full int16 range, with and without the DC splice, int16 and int32
   7. decode the H.264 fixture on the card: the dequant_idct kernel launched
      twice (luma, both chroma planes), the h264_intra and h264_deblock
-     kernels once per diagonal each (the whole batch in one launch), every
+     kernels once each (the whole batch's scan in one launch), every
      frame/plane equal to the committed libavcodec SHA-256 digests, and
      equal to the same batch decoded with dequant_idct_reference
   8. timing of the H.264 path as in phase 5, the batch decode's kernel
@@ -67,9 +67,9 @@ non-zero:
      torch.profiler); walk launches taken and skipped; and the walk kernel
      against walk_reference at the middle scan step of the first P picture
  11. decode the H.264 P fixture on the card (decode_h264): the
-     dequant_idct kernel launched twice per picture, h264_intra once per
-     diagonal of the IDR and per walked diagonal of a P picture,
-     h264_deblock once per diagonal of every picture, all 15 planes equal
+     dequant_idct kernel launched twice per picture, h264_intra once a
+     picture that holds an intra macroblock (the IDR, a P picture with a
+     walked diagonal), h264_deblock once a picture, all 15 planes equal
      to the committed libavcodec SHA-256 digests; per picture the intra
      scan's diagonals walked and skipped
  12. timing of the H.264 P path over the IDR and the first two P
@@ -191,15 +191,16 @@ non-zero:
      bit, on the arguments the decode gives them at phase 7's batch of 32
      (the all-intra scans: one bS pattern for every frame) and at phase
      11's first P picture (seeded with its MC tiles, its walk, its per-edge
-     bS); per kernel and shape the ms per launch (median over the
-     diagonals of each launch's device time in a torch.profiler trace of
-     the kernel's scan, over the launches the trace holds: the profiler
-     may drop a few records), the plain version's wall per launch it
-     stands for, the bound and the launches a decode. Every H.264 path above also
-     checks that both kernels ran (the encoder's P frames, all inter
-     macroblocks, walk no intra diagonal; its device engine deblocks each
-     P frame, one launch a diagonal), and their kernels' records count the
-     launches of every path driven
+     bS); per kernel and shape the ms of the scan, its one launch's device
+     time in a torch.profiler trace (the median of REPS runs), the time of
+     one step of its chain (the scan's ms over its mbw + 2(mbh - 1)
+     diagonals) beside the launch floor, the plain version's wall for the
+     scan, the bound of the whole scan and the launches a decode. Every
+     H.264 path above also checks that both kernels ran (the encoder's P
+     frames, all inter macroblocks, walk no intra diagonal and launch no
+     intra scan; its device engine deblocks each P frame, one launch a
+     frame), and their kernels' records count the launches of every path
+     driven
 
 With --sp N (N > 1; needs N cards) only phases 1-2 and this one run:
 
@@ -341,8 +342,6 @@ SHAPES = {"luma": (64, 32, False, True, BATCH * 17),
           "chroma": (32, 16, True, False, 2 * BATCH * 17)}
 # lanes of one 1080p picture at CTU 64, as the inter path walks them
 INTER_LANES = {"luma": 17, "chroma": 34}
-# the H.264 scans' diagonals at 1080p: 120 x 68 macroblocks, mbw + 2(mbh-1)
-STEPS_1080P = 120 + 2 * (68 - 1)
 
 
 def say(*a):
@@ -774,7 +773,7 @@ def h264_path(dev, card, err):
                          f"both chroma planes)")
     check(HW.LAUNCHES == 0, "hevc_walk launched on the H.264 path")
     steps = mbw + 2 * (mbh - 1)
-    scans = scan_counts("phase 7", steps, steps)
+    scans = scan_counts("phase 7", 1, 1)
     check(out[0].dtype == torch.uint8
           and tuple(out[0].shape) == (H264_BATCH, mbh * 16, mbw * 16),
           f"Y {out[0].dtype} {tuple(out[0].shape)}")
@@ -788,8 +787,8 @@ def h264_path(dev, card, err):
         check(e == 0, f"decode != dequant_idct_reference decode ({plane})")
     say(f"phase 7: {H264_BATCH}x {w}x{h} H.264: {steps} wavefront steps of "
         f"{mbh} lanes per frame, dequant_idct launched {launches} times, "
-        f"h264_intra {scans[0]} and h264_deblock {scans[1]} (once per "
-        f"diagonal, all {H264_BATCH} frames in each launch); all "
+        f"h264_intra {scans[0]} and h264_deblock {scans[1]} (one launch a "
+        f"scan, the {H264_BATCH * mbh} lanes of the batch chained in it); all "
         f"{H264_BATCH * 3} planes match the libavcodec SHA-256 digests and "
         f"the dequant_idct_reference decode")
     del ref, out
@@ -1001,11 +1000,10 @@ def h264_inter_path(dev, card, idct_rec, err):
              if fs.mv is not None]
     walked = sum(sum(w) for w in walks)
     steps = sum(len(w) for w in walks)
-    n_steps = lambda fs: fs.mb_width + 2 * (fs.mb_height - 1)
     scans = scan_counts(
-        "phase 11", walked + sum(n_steps(fs) for fs, _ in pics
-                                 if fs.mv is None),
-        sum(n_steps(fs) for fs, _ in pics if fs.deblock_enabled))
+        "phase 11", sum(any(w) for w in walks)
+        + sum(fs.mv is None for fs, _ in pics),
+        sum(fs.deblock_enabled for fs, _ in pics))
     sps = pics[0][1]
     say(f"phase 11: {n} pictures {sps.width}x{sps.height} H.264 (I, then "
         f"{len(walks)} P with {[fs.num_ref_l0 for fs, _ in pics[1:]]} "
@@ -1013,10 +1011,9 @@ def h264_inter_path(dev, card, idct_rec, err):
         f"picture); the P pictures' intra scans walked "
         f"{[sum(w) for w in walks]} and skipped "
         f"{[len(w) - sum(w) for w in walks]} of {len(walks[0])} diagonals "
-        f"(h264_intra launched {scans[0]} times: the IDR's diagonals and "
-        f"the walked ones; h264_deblock {scans[1]}: every diagonal of every "
-        f"picture); all {3 * n} planes match the libavcodec SHA-256 "
-        f"digests")
+        f"(h264_intra launched {scans[0]} times: once a picture with an "
+        f"intra macroblock; h264_deblock {scans[1]}: once a picture); all "
+        f"{3 * n} planes match the libavcodec SHA-256 digests")
     del frames
 
     # ---- phase 12: timing, over the IDR and the first two P pictures ----
@@ -1441,9 +1438,10 @@ def encode_session_path(dev, card):
         f["dequant_idct_launches"] == (2 if f["frame"] else 0)
         for f in per_frame), f"{launches} dequant_idct launches for "
                              f"{n_p} P frames, want 2 each")
-    # a P frame's recon deblocks every diagonal; its macroblocks are all
-    # inter, so its intra scan walks none (the IDR is encoded on the host)
-    scans = scan_counts("phase 18", 0, n_p * (enc.mbw + 2 * (enc.mbh - 1)))
+    # a P frame's recon deblocks it in one launch; its macroblocks are all
+    # inter, so its intra scan walks no diagonal and launches nothing (the
+    # IDR is encoded on the host)
+    scans = scan_counts("phase 18", 0, n_p)
     stream = b"".join(b for b, _ in packets)
     sha = hashlib.sha256(stream).hexdigest()
     check({"sha256": sha, "length": len(stream)} == fx["stream"],
@@ -1500,7 +1498,7 @@ def encode_session_path(dev, card):
         f"port's decode_h264 on the card equals the libavcodec digests and "
         f"the encoder's recon, plane by plane; dequant_idct launched "
         f"{launches} times (2 a P frame), h264_intra {scans[0]}, "
-        f"h264_deblock {scans[1]} (every diagonal of each P frame)")
+        f"h264_deblock {scans[1]} (one launch a P frame)")
     for f in per_frame:
         st = f["stages_ms"]
         pack = st.get("enc_pack")
@@ -1557,13 +1555,11 @@ def encode_small_sessions(card):
                 torch.cuda.synchronize()
                 launches += ID.LAUNCHES
                 # the device engine rebuilds every P frame through the
-                # deblock kernel, one launch a diagonal
+                # deblock kernel, one launch a P frame
                 check(isinstance(sess._enc, DeviceH264Encoder),
                       f"{name}: not on the device engine")
                 n_p = sum(i % kw["gop_len"] != 0 for i in range(n))
-                mbw, mbh = -(-kw["width"] // 16), -(-kw["height"] // 16)
-                scan_counts(f"phase 19 {name}", "any",
-                            n_p * (mbw + 2 * (mbh - 1)))
+                scan_counts(f"phase 19 {name}", "any", n_p)
         check(got[0] == got[1], f"{name}: the card's packets differ from "
                                 f"the CPU's")
         keys = [k for _, k in got[0]]
@@ -1624,8 +1620,7 @@ def sharded_decode_path(dev, card):
     Y, U, V = decode_symbols_sharded(fss, cfg, mesh)
     launches = ID.LAUNCHES
     check(launches == 2, f"{launches} dequant_idct launches, want 2")
-    steps = mbw + 2 * (mbh - 1)
-    scans = scan_counts("phase 20", steps, steps)
+    scans = scan_counts("phase 20", 1, 1)
     check(Y.shape == (H264_BATCH, mbh * 16, mbw * 16), f"Y {Y.shape}")
     check_digests((Y[:, :h, :w], U[:, :h // 2, :w // 2],
                    V[:, :h // 2, :w // 2]), digests, "sharded h264")
@@ -1643,7 +1638,7 @@ def sharded_decode_path(dev, card):
     step_launches = ID.LAUNCHES
     check(step_launches == 2, f"{step_launches} dequant_idct launches in "
                               f"the transcode step, want 2")
-    scan_counts("phase 20 step", steps, steps)
+    scan_counts("phase 20 step", 1, 1)
     zc, bc, sc = _encode_forward(_downscale2x_with_halo(
         torch.from_numpy(Y).to(torch.int32), mesh.get_group("sp")), 30)
     check(np.array_equal(z, zc.numpy()) and (bits, ssd) == (int(bc), int(sc)),
@@ -1957,14 +1952,13 @@ def bench_path(dev, card, walk_rec, idct_rec):
     dt = time.perf_counter() - t0
     walk, idct = HW.LAUNCHES, ID.LAUNCHES
     # bench_h264 decodes the batch three times (checked, end to end,
-    # device-only), each a launch of each scan kernel per diagonal
-    steps = STEPS_1080P
-    scan_counts("phase 25", 3 * steps, 3 * steps)
+    # device-only), each one launch of each scan kernel
+    scan_counts("phase 25", 3, 3)
     check(hevc["launches"] == {"hevc_walk": 124, "dequant_idct": 0,
                                "h264_intra": 0, "h264_deblock": 0},
           f"bench_hevc launches {hevc['launches']}")
     check(h264["launches"] == {"hevc_walk": 0, "dequant_idct": 2,
-                               "h264_intra": steps, "h264_deblock": steps},
+                               "h264_intra": 1, "h264_deblock": 1},
           f"bench_h264 launches {h264['launches']}")
     say(f"phase 25 [{card}]: tools/bench.py, one repeat each: bench_hevc "
         f"{hevc['frames']} frames {hevc['fps']:.2f} fps end to end, "
@@ -1972,7 +1966,7 @@ def bench_path(dev, card, walk_rec, idct_rec):
         f"times in its checked decode; bench_h264 {h264['frames']} frames "
         f"{h264['fps']:.3f} fps end to end, {h264['device_fps']:.3f} "
         f"device-only, dequant_idct launched twice and the scan kernels "
-        f"{steps} times each; every plane equals the libavcodec digests; "
+        f"once each; every plane equals the libavcodec digests; "
         f"{dt:.1f} s; launches in all: hevc_walk {walk}, dequant_idct "
         f"{idct}")
     for rec, n in ((walk_rec, walk), (idct_rec, idct)):
@@ -2081,9 +2075,11 @@ def timed(fn):
 
 def kernel_ms(fn, name):
     """(fn()'s result, the device ms of each launch of the CUDA kernel
-    whose name holds `name`) of one fn() run under torch.profiler."""
+    whose name holds `name`) of one fn() run under torch.profiler (host
+    and device activity, as the profile tools trace)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     ms = [(e[3] - e[2]) / 1e3 for e in raw_events(prof)
@@ -2092,28 +2088,28 @@ def kernel_ms(fn, name):
 
 
 def intra_bound(ia, steps):
-    """Bound of one h264_intra launch, the mean over the launched
-    diagonals `steps`. Bytes per macroblock it reconstructs (a valid lane
-    that is not an inter macroblock of a P picture): the residual (1,536
-    B), modes and the six per-macroblock scalars (88 B) and the 71
-    neighbour samples (284 B) in, the tiles (1,536 B) out; per launched
-    lane 8 B (valid, class). Operations: 8 per luma sample and 6 per chroma
-    sample (prediction taps, residual, clip)."""
+    """Bound of the h264_intra scan, over the walked diagonals `steps`.
+    Bytes per macroblock it reconstructs (a valid lane that is not an inter
+    macroblock of a P picture): the residual (1,536 B), modes and the six
+    per-macroblock scalars (88 B) and the 71 neighbour samples (284 B) in,
+    the tiles (1,536 B) out; per lane of a walked diagonal 8 B (valid,
+    class). Operations: 8 per luma sample and 6 per chroma sample
+    (prediction taps, residual, clip)."""
     cls, valid = ia[4][:, steps], ia[10][steps] == 1
     act = valid & (cls != 3) if ia[11] is not None else valid.expand_as(cls)
     n_mb = int(act.sum())
     nb = n_mb * (1536 + 88 + 284 + 1536) + 8 * int(valid.sum()) * cls.shape[0]
-    return bound_ms(nb / len(steps), n_mb * (256 * 8 + 128 * 6) / len(steps))
+    return bound_ms(nb, n_mb * (256 * 8 + 128 * 6))
 
 
 def deblock_bound(da):
-    """Bound of one h264_deblock launch, the mean over the diagonals.
-    Bytes per valid macroblock: its tiles in and out (3,072 B), the left
-    tile's last four luma / two chroma columns and the top tile's last
-    rows in and out where the neighbour exists (768 B each), 12 B of QP,
-    128 B of bS per lane (per frame unless one pattern serves every
-    frame), the offsets. Operations: 30 per luma line and 20 per chroma
-    line of a sub-edge with bS > 0 on a valid lane."""
+    """Bound of the h264_deblock scan. Bytes per valid macroblock: its
+    tiles in and out (3,072 B), the left tile's last four luma / two
+    chroma columns and the top tile's last rows in and out where the
+    neighbour exists (768 B each), 12 B of QP, 128 B of bS per lane (per
+    frame unless one pattern serves every frame), the offsets. Operations:
+    30 per luma line and 20 per chroma line of a sub-edge with bS > 0 on a
+    valid lane."""
     nf, n_steps, lanes = da[3].shape
     valid = da[4] == 1
     t = torch.arange(n_steps, device=valid.device)[:, None]
@@ -2127,49 +2123,63 @@ def deblock_bound(da):
     luma = sum(int(on(b).sum()) for b in da[9:11]) * 4
     chroma = sum(int(on(b)[..., (0, 2), :].sum()) for b in da[9:11]) * 2 * 2
     ops = (30 * luma + 20 * chroma) * (nf // bs_frames)
-    return bound_ms(nb / n_steps, ops / n_steps)
+    return bound_ms(nb, ops)
+
+
+def scan_ms(fn, name):
+    """(fn()'s result, the median over REPS runs of fn() of the device ms
+    of its one launch of the CUDA kernel whose name holds `name`, the
+    launches traced). A run whose trace lost the launch's record (the
+    profiler may drop one) is run again, at most REPS times more."""
+    out, ms, traced = None, [], 0
+    for _ in range(2 * REPS):
+        out, got = kernel_ms(fn, name)
+        check(len(got) <= 1, f"{name}: {len(got)} launches in one scan")
+        traced += len(got)
+        ms += got
+        if len(ms) == REPS:
+            break
+    check(ms, f"{name}: no launch traced in {2 * REPS} runs")
+    return out, statistics.median(ms), traced
 
 
 def scan_shape(key, cap, card, floor):
     """Phase 27 at one shape: both kernels against their plain versions
-    on the captured arguments, bit for bit; each kernel's ms per launch
-    (median over its launches), the plain version's wall per launch it
-    stands for, and the bound. Returns {kernel: (ms, plain ms, bound,
-    launches, err)}."""
+    on the captured arguments, bit for bit; each kernel's ms a scan (its
+    one launch), the time of one chain step, the plain version's wall for
+    the scan, and the scan's bound. Returns {kernel: (ms, plain ms, bound,
+    launches a decode, err, step ms)}."""
     ia, da = cap["intra"], cap["deblock"]
     walk = ia[12]
-    steps = [t for t in range(ia[10].shape[0]) if walk is None or walk[t]]
+    n_steps = ia[10].shape[0]
+    steps = [t for t in range(n_steps) if walk is None or walk[t]]
     out = {}
-    # the profiler may drop a few kernel records of a run (phase 8's
-    # count too): the median is over the launches it traced
-    got, ms = kernel_ms(lambda: HS.intra_tiles(*ia), "h264_intra_kernel")
-    check(0 < len(ms) <= len(steps), f"phase 27 {key}: {len(ms)} h264_intra "
-                                     f"launches traced of {len(steps)}")
+    got, ms, traced = scan_ms(lambda: HS.intra_tiles(*ia),
+                              "h264_intra_kernel")
     want, t_plain = timed(lambda: RT._intra_tile_scan(*ia))
     err = max(max_abs(g, w) for g, w in zip(got, want))
     check(err == 0, f"phase 27 {key}: h264_intra != _intra_tile_scan")
-    out["h264_intra"] = (statistics.median(ms), t_plain * 1e3 / len(steps),
-                         intra_bound(ia, steps), len(steps), err, len(ms))
+    out["h264_intra"] = (ms, t_plain * 1e3, intra_bound(ia, steps), 1, err,
+                         ms / n_steps, traced)
     del got, want
 
-    n_steps = da[4].shape[0]
-    got, ms = kernel_ms(lambda: HS.deblock_tiles(*da), "h264_deblock_kernel")
-    check(0 < len(ms) <= n_steps, f"phase 27 {key}: {len(ms)} h264_deblock "
-                                  f"launches traced of {n_steps}")
+    got, ms, traced = scan_ms(lambda: HS.deblock_tiles(*da),
+                              "h264_deblock_kernel")
     want, t_plain = timed(lambda: RT._deblock_tile_scan(*da))
     err = max(max_abs(g, w) for g, w in zip(got, want))
     check(err == 0, f"phase 27 {key}: h264_deblock != _deblock_tile_scan")
-    out["h264_deblock"] = (statistics.median(ms), t_plain * 1e3 / n_steps,
-                           deblock_bound(da), n_steps, err, len(ms))
+    out["h264_deblock"] = (ms, t_plain * 1e3, deblock_bound(da), 1, err,
+                           ms / n_steps, traced)
     del got, want
-    for name, (k_ms, p_ms, bound, n, e, traced) in out.items():
-        say(f"phase 27 [{card}]: {name} at the {key} ({n} launches a "
-            f"decode, F={ia[4].shape[0]}, {ia[4].shape[2]} lanes): kernel "
-            f"{k_ms:.4f} ms a launch (median of the {traced} traced), "
-            f"plain version "
-            f"{p_ms:.3f} ms a launch (its wall over the scan), bound "
-            f"{bound[0]:.5f} ms ({bound[2]}), launch floor {floor:.5f} "
-            f"ms, max_abs_err {e}")
+    for name, (k_ms, p_ms, bound, n, e, step, traced) in out.items():
+        say(f"phase 27 [{card}]: {name} at the {key} ({n} launch a "
+            f"decode, F={ia[4].shape[0]}, {ia[4].shape[2]} lanes, "
+            f"{len(steps) if name == 'h264_intra' else n_steps} of "
+            f"{n_steps} diagonals): kernel {k_ms:.4f} ms a scan (median of "
+            f"{traced} traced runs), one step of its {n_steps}-step chain "
+            f"{step * 1000:.2f} us (launch floor {floor * 1000:.2f} us), "
+            f"plain version {p_ms:.1f} ms (its wall), bound {bound[0]:.5f} "
+            f"ms ({bound[2]}), max_abs_err {e}")
     return out
 
 
@@ -2186,8 +2196,7 @@ def h264_scan_path(dev, card, floor):
     _, cap = scan_capture(lambda: RT.decode_frames_batch(
         mbh, mbw, *args, deblock=True))
     torch.cuda.synchronize()
-    steps = mbw + 2 * (mbh - 1)
-    n_batch = scan_counts("phase 27 batch", steps, steps)
+    n_batch = scan_counts("phase 27 batch", 1, 1)
     check(cap["deblock"][9].shape[0] == 1 and cap["intra"][11] is None,
           "the batch's scans are not the all-intra ones")
     shapes = {"batch": scan_shape(f"batch of {len(fss)}", cap, card, floor)}
@@ -2205,7 +2214,8 @@ def h264_scan_path(dev, card, floor):
         fs1, refs, ref_ids=ids))
     torch.cuda.synchronize()
     walked = sum(RT.intra_steps(fs1.mb_class))
-    n_p = scan_counts("phase 27 P picture", walked, steps)
+    steps = mbw + 2 * (mbh - 1)
+    n_p = scan_counts("phase 27 P picture", 1, 1)
     check(cap["intra"][11] is not None and 0 < walked < steps,
           "the P picture's intra scan skips nothing")
     shapes["p"] = scan_shape("first P picture", cap, card, floor)
@@ -2225,14 +2235,16 @@ def h264_scan_path(dev, card, floor):
                "ms": mean(0), "plain_ms": mean(1),
                "bound_ms": statistics.mean(b[0] for b in bounds),
                "bound_by": max(bounds)[1], "library_ms": None}
-        for key, (k_ms, p_ms, bound, n, _, traced) in per.items():
+        for key, (k_ms, p_ms, bound, n, _, step, traced) in per.items():
             rec.update({f"ms_{key}": k_ms, f"plain_ms_{key}": p_ms,
                         f"bound_ms_{key}": bound[0],
                         f"launches_per_decode_{key}": n,
-                        f"launches_traced_{key}": traced})
+                        f"step_ms_{key}": step,
+                        f"runs_traced_{key}": traced})
         recs.append(rec)
     say(f"phase 27 [{card}]: launches a decode: the batch of {len(fss)} "
-        f"{n_batch} (intra, deblock), the first P picture {n_p}")
+        f"{n_batch} (intra, deblock), the first P picture {n_p}; a scan's "
+        f"chain is {steps} macroblock steps at {mbw}x{mbh} macroblocks")
     return recs
 
 

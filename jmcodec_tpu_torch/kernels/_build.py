@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels from the sources in this checkout.
 
-nvcc compiles every csrc/*.cu for sm_90a (Hopper), one process per source
-and all at once, and links the objects into one shared library with a
-plain C interface (loaded with ctypes by the wrappers), under the
-package's build/ directory. It builds on first use and again whenever a
+nvcc compiles every csrc/*.cu (with the csrc/*.cuh they include) for
+sm_90a (Hopper), one process per source and all at once, and links the
+objects into one shared library with a plain C interface (loaded with
+ctypes by the wrappers), under the package's build/ directory. It builds on first use and again whenever a
 source is newer than the library; it uses no sources from outside the
 repository.
 """
@@ -49,9 +49,11 @@ def build(force: bool = False) -> str:
     """Compile the kernels if needed; returns the library's path."""
     global last_log
     srcs = sorted(glob.glob(os.path.join(_SRC, "*.cu")))
+    headers = glob.glob(os.path.join(_SRC, "*.cuh"))
     with _lock:
         if (not force and os.path.exists(LIB) and all(
-                os.path.getmtime(LIB) >= os.path.getmtime(s) for s in srcs)):
+                os.path.getmtime(LIB) >= os.path.getmtime(s)
+                for s in srcs + headers)):
             return LIB
         os.makedirs(_BUILD, exist_ok=True)
         nvcc = _nvcc()

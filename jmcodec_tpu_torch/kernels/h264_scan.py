@@ -1,6 +1,6 @@
 """The H.264 reconstruction scans as CUDA kernels: the intra wavefront
 (csrc/h264_intra.cu) and the deblock wavefront (csrc/h264_deblock.cu), one
-launch per diagonal, on skewed macroblock tiles (recon_tiles' layout).
+persistent launch a scan, on skewed macroblock tiles (recon_tiles' layout).
 
     intra_tiles(...)   == recon_tiles._intra_tile_scan(...)
     deblock_tiles(...) == recon_tiles._deblock_tile_scan(...)
@@ -14,19 +14,23 @@ routes a decode on the card here; CPU tensors take the torch versions
 there, and these wrappers raise on them.
 
 Both kernels read the picture's neighbours from the tiles of earlier
-diagonals, so one diagonal's launch needs the previous one's to have
-finished: the wrapper issues them in order on the current stream. Lane 0
-is the picture's top macroblock row and a macroblock at mx == 0 has none to
-its left: the kernels never read past them (the torch versions roll the
-lanes and mask what wraps), so their inputs must hold what every picture
-holds there: no top availability on lane 0, and bS 0 on the picture's
-boundary edges.
+diagonals. One launch walks a range of diagonals: each warp of it takes a
+(frame, lane) and walks that lane's macroblocks in order, waiting before
+each one on the lane above's progress flag (csrc/lane_chain.cuh). The
+flags and the lanes' ticket are scratch that the wrapper zeroes (with the
+walk mask of a P picture after them, copied up from the host): one fill
+and one kernel a scan. Lane 0 is the picture's top macroblock row and a
+macroblock at mx == 0 has none to its left: the kernels never read past
+them (the torch versions roll the lanes and mask what wraps), so their
+inputs must hold what every picture holds there: no top availability on
+lane 0, and bS 0 on the picture's boundary edges.
 
 Row-sharded decode (parallel/spatial.py): with `group`, a process group of
 n > 1 ranks that hold equal bands of consecutive lanes in rank order, each
 rank passes its band and the kernels take the lane above it as a halo, one
 tile per diagonal, filled by a point-to-point exchange with the rank above
-after each launch (ring_pass): rank i runs diagonal d once rank i-1 has
+after each launch (ring_pass). A kernel cannot wait on NCCL, so this route
+keeps one launch a diagonal: rank i runs diagonal d once rank i-1 has
 sent its last lane's tile of diagonal d-1, so the ranks keep in step. The
 deblock kernel filters the halo's last rows as the top edge of its lane 0;
 those rows go back to the rank above at the end, which holds the tile's
@@ -49,8 +53,9 @@ from .recon import _I4_ABC, _TR_SRC
 
 _I32 = torch.int32
 
-# Kernel launches, one per diagonal; read by callers that must show the
-# main path went through the kernels.
+# Kernel launches: one a scan on one rank, one a diagonal on a band of a
+# row-sharded group; read by callers that must show the main path went
+# through the kernels.
 INTRA_LAUNCHES = 0
 DEBLOCK_LAUNCHES = 0
 
@@ -64,6 +69,21 @@ DEBLOCK_ARGS = ("Yt", "Ut", "Vt", "qp_t", "valid_t", "alpha_off", "beta_off",
 # the halo's packing of one tile of a lane: Y (256), then U and V (64 each)
 HALO = 256 + 64 + 64
 
+
+def _i4_wave():
+    """The Intra_4x4 wavefront of csrc/h264_intra.cu: [10 steps, 2] int32,
+    the sub-blocks (decode order index) of each step, -1 in the second
+    slot of a step that holds one. Sub-block (bx, by) goes at step bx/4 +
+    2 by/4, after its left, top, top-left and top-right sub-blocks."""
+    wave = np.full((10, 2), -1, np.int32)
+    for blk in range(16):
+        step = int(MB.BLK_X[blk]) // 4 + 2 * (int(MB.BLK_Y[blk]) // 4)
+        wave[step, int(wave[step, 0] >= 0)] = blk
+    return wave
+
+
+I4_WAVE = _i4_wave()
+
 _lib = None
 _tables_on = set()      # devices whose constant tables are set
 
@@ -74,12 +94,13 @@ def _load():
         from . import _build
         lib = ctypes.CDLL(_build.build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.h264_intra_set_tables.argtypes = [p] * 4
+        lib.h264_intra_set_tables.argtypes = [p] * 5
         lib.h264_deblock_set_tables.argtypes = [p] * 4
-        lib.h264_intra_launch.argtypes = ([p] * 14 + [i, p, p]
-                                          + [i] * 6 + [p])
+        lib.h264_intra_launch.argtypes = ([p] * 14 + [i, p, p, i, p, p]
+                                          + [i] * 5 + [p])
         lib.h264_deblock_launch.argtypes = ([p] * 11 + [ctypes.c_longlong]
-                                            + [p, p] + [i] * 6 + [p])
+                                            + [p, p, i, p, p] + [i] * 5
+                                            + [p])
         for fn in (lib.h264_intra_set_tables, lib.h264_deblock_set_tables,
                    lib.h264_intra_launch, lib.h264_deblock_launch):
             fn.restype = ctypes.c_int
@@ -98,7 +119,8 @@ def _tables(device):
     per device): the port's own arrays, copied up from the host."""
     lib = _load()
     if device.index not in _tables_on:
-        intra = [_host(a) for a in (MB.BLK_X, MB.BLK_Y, _TR_SRC, _I4_ABC)]
+        intra = [_host(a) for a in (MB.BLK_X, MB.BLK_Y, _TR_SRC, _I4_ABC,
+                                    I4_WAVE)]
         deblock = [_host(a) for a in (DB.ALPHA_TABLE, DB.BETA_TABLE,
                                       DB.TC0_TABLE, T.CHROMA_QP)]
         with torch.cuda.device(device):
@@ -115,7 +137,9 @@ def _tables(device):
 def _check(named, device, shapes):
     """named {name: tensor}, shapes {name: shape}: every tensor int32,
     contiguous and of its shape (checked first, so a CPU call shows a wrong
-    argument too), then all on `device`, a CUDA device."""
+    argument too), then all on `device`, a CUDA device, each tensor of
+    tiles starting on a 16-byte boundary (the kernels copy tiles 16 bytes
+    at a time)."""
     for name, t in named.items():
         if t.dtype != _I32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -131,6 +155,20 @@ def _check(named, device, shapes):
     for name, t in named.items():
         if t.device != device:
             raise ValueError(f"{name} on {t.device}, not {device}")
+        if t.dim() >= 4 and t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
+
+
+def _scratch(nf, lanes, tickets, device, walk=None):
+    """The kernels' scratch, int32: the lanes' progress flags [nf * lanes],
+    then `tickets` lane counters, all 0, then with `walk` its diagonals as
+    0/1 (one copy from the host; else one fill)."""
+    n = nf * lanes + tickets
+    if walk is None:
+        return torch.zeros(n, dtype=_I32, device=device)
+    host = np.zeros(n + len(walk), np.int32)
+    host[n:] = np.asarray(walk, dtype=bool)
+    return torch.from_numpy(host).to(device, non_blocking=True)
 
 
 def _stream(device):
@@ -211,36 +249,45 @@ def intra_tiles(resid_y_t, resid_u_t, resid_v_t, modes_t, cls_t, i16_t,
     # the lane above the band: first its seed, then each walked diagonal
     # as the rank above finishes it
     halo = ring_pass(_lane_tiles(out, slice(None)), group)
+    scratch = _scratch(nf, lanes, n_steps, cls_t.device)
     for d in range(n_steps):
         if walk is None or walk[d]:
-            _launch_intra(out, named, has_inter, None, d, d + 1, halo, k0)
+            _launch_intra(out, named, has_inter, None, d, d + 1, halo, k0,
+                          scratch, d)
             halo[:, d] = ring_pass(_lane_tiles(out, d), group)
     return out
 
 
-def _launch_intra(out, named, has_inter, walk, d0, d1, halo=None, k0=0):
-    """Launch the intra kernel on diagonals d0 .. d1-1 (those walk marks)
-    in place on out (Y, U, V), with intra_tiles' checked inputs `named`;
-    halo [F, n_steps, HALO] the lane above a band whose first lane is k0 >
-    0."""
+def _launch_intra(out, named, has_inter, walk, d0, d1, halo=None, k0=0,
+                  scratch=None, ticket=0):
+    """Launch the intra kernel once on diagonals d0 .. d1-1 (those walk
+    marks; none: no launch) in place on out (Y, U, V), with intra_tiles'
+    checked inputs `named`; halo [F, n_steps, HALO] the lane above a band
+    whose first lane is k0 > 0. scratch: _scratch's flags and counters,
+    shared by the launches of one scan (ticket: this launch's counter;
+    only without walk); None: its own."""
     Y = out[0]
     nf, n_steps, lanes = named["cls_t"].shape
-    mask = None if walk is None else \
-        np.ascontiguousarray(np.asarray(walk, dtype=np.uint8))
-    n = d1 - d0 if mask is None else int(mask[d0:d1].sum())
+    if walk is not None and not any(walk[d0:d1]):
+        return
+    if scratch is None:
+        scratch = _scratch(nf, lanes, 1, Y.device, walk)
+    base = scratch.data_ptr()
     lib = _tables(Y.device)
     with torch.cuda.device(Y.device):
         err = lib.h264_intra_launch(
             *(t.data_ptr() for t in out),
             *(named[k].data_ptr() for k in INTRA_ARGS),
-            int(has_inter), None if mask is None else mask.ctypes.data,
+            int(has_inter),
+            None if walk is None else base + 4 * (nf * lanes + 1),
             None if halo is None else halo.data_ptr(), k0,
+            base, base + 4 * (nf * lanes + ticket),
             nf, n_steps, lanes, d0, d1, _stream(Y.device))
     if err != 0:
         raise RuntimeError(f"h264_intra kernel launch failed: CUDA error "
                            f"{err}")
     global INTRA_LAUNCHES
-    INTRA_LAUNCHES += n
+    INTRA_LAUNCHES += 1
 
 
 def deblock_tiles(Yt, Ut, Vt, qp_t, valid_t, alpha_off, beta_off,
@@ -274,8 +321,9 @@ def deblock_tiles(Yt, Ut, Vt, qp_t, valid_t, alpha_off, beta_off,
     # its launch t, tile t-1 of its last lane is final there
     hqp = ring_pass(qp_t[:, :, -1].contiguous(), group)
     halo = torch.zeros((nf, n_steps, HALO), dtype=_I32, device=Yt.device)
+    scratch = _scratch(nf, lanes, n_steps, Yt.device)
     for t in range(n_steps):
-        _launch_deblock(out, named, t, t + 1, halo, hqp, k0)
+        _launch_deblock(out, named, t, t + 1, halo, hqp, k0, scratch, t)
         if t > 0:
             halo[:, t - 1] = ring_pass(_lane_tiles(out, t - 1), group)
     halo[:, -1] = ring_pass(_lane_tiles(out, n_steps - 1), group)
@@ -290,15 +338,20 @@ def deblock_tiles(Yt, Ut, Vt, qp_t, valid_t, alpha_off, beta_off,
     return out
 
 
-def _launch_deblock(out, named, t0, t1, halo=None, hqp=None, k0=0):
-    """Launch the deblock kernel on diagonals t0 .. t1-1 in place on out
-    (Y, U, V), with deblock_tiles' checked inputs `named`; halo [F,
+def _launch_deblock(out, named, t0, t1, halo=None, hqp=None, k0=0,
+                    scratch=None, ticket=0):
+    """Launch the deblock kernel once on diagonals t0 .. t1-1 in place on
+    out (Y, U, V), with deblock_tiles' checked inputs `named`; halo [F,
     n_steps, HALO] and hqp [F, n_steps] the lane above a band whose first
-    lane is k0 > 0, filtered in place."""
+    lane is k0 > 0, filtered in place. scratch, ticket: as
+    _launch_intra's."""
     Y = out[0]
     nf, n_steps, lanes = named["qp_t"].shape
     bs_v = named["bs_v_t"]
     fstride = 0 if bs_v.shape[0] == 1 else n_steps * lanes * 16
+    if scratch is None:
+        scratch = _scratch(nf, lanes, 1, Y.device)
+    base = scratch.data_ptr()
     lib = _tables(Y.device)
     with torch.cuda.device(Y.device):
         err = lib.h264_deblock_launch(
@@ -306,9 +359,10 @@ def _launch_deblock(out, named, t0, t1, halo=None, hqp=None, k0=0):
             *(named[k].data_ptr() for k in DEBLOCK_ARGS[3:]),
             fstride, None if halo is None else halo.data_ptr(),
             None if hqp is None else hqp.data_ptr(), k0,
+            base, base + 4 * (nf * lanes + ticket),
             nf, n_steps, lanes, t0, t1, _stream(Y.device))
     if err != 0:
         raise RuntimeError(f"h264_deblock kernel launch failed: CUDA error "
                            f"{err}")
     global DEBLOCK_LAUNCHES
-    DEBLOCK_LAUNCHES += t1 - t0
+    DEBLOCK_LAUNCHES += 1

@@ -15,15 +15,15 @@ by one lane. Stages:
   1b. inter     - P pictures: quarter-pel MC of every 4x4 block from the
                   padded references (weighted where the slice says so)
                   plus the residual, wavefront-free
-  2. intra scan - on the card the h264_intra CUDA kernel, one launch per
-                  diagonal (h264_scan.intra_tiles); its plain version here
+  2. intra scan - on the card the h264_intra CUDA kernel, one launch a
+                  scan (h264_scan.intra_tiles); its plain version here
                   is a Python loop over the diagonals that carries the last
                   three and emits each finished one; in a P picture the
                   inter macroblocks take their MC tile, and a diagonal
                   without an intra macroblock is its MC tiles, with no
                   launch
-  3. deblock    - on the card the h264_deblock CUDA kernel, one launch per
-                  diagonal, in place (h264_scan.deblock_tiles); its plain
+  3. deblock    - on the card the h264_deblock CUDA kernel, one launch a
+                  scan, in place (h264_scan.deblock_tiles); its plain
                   version is a second loop, two diagonals behind: a tile is
                   final once its right and bottom neighbours have filtered
                   the edges they share with it; bS is the constant intra

@@ -5,7 +5,7 @@ pictures before the chosen one on the card to fill the DPB, then decodes
 the chosen P picture (recon_tiles.decode_frame_symbols_inter: symbol
 upload, luma and chroma MC, residuals, bS, the intra scan over the inter
 tiles and the per-edge-bS deblock scan, each a CUDA kernel launched once
-per diagonal) from its parsed symbols. First
+a scan) from its parsed symbols. First
 without the profiler: the picture's wall, then the wall of each stage,
 each ended by a synchronise. Then once under torch.profiler: per stage
 the launches and the device's busy time, and the kernels ranked by device

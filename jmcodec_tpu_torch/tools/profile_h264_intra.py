@@ -3,7 +3,7 @@
 Decodes the committed fixture at the smoke's batch (tools/fixtures.py)
 from device-resident symbol tensors. First without the profiler: the wall
 time of each stage (residuals; the intra and deblock scans, the
-h264_intra and h264_deblock kernels, one launch per diagonal), each ended
+h264_intra and h264_deblock kernels, one launch a scan), each ended
 by a synchronise, and the time the host took to parse and to stack and
 copy the symbols. Then once under torch.profiler: per stage the launches and the
 device's busy time, and the kernels ranked by device time. A stage whose

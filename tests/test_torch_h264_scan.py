@@ -19,7 +19,11 @@ and recon_tiles' routing), at tolerance 0 on seeded inputs:
   diagonal built from the torch scans, equals the one-device decode and,
   at sp = 2, jmcodec_tpu's row-sharded decode;
 - intra_tiles / deblock_tiles raise on CPU tensors and on a wrong dtype,
-  shape or layout, before anything is launched.
+  shape or layout, before anything is launched;
+- the intra kernel's Intra_4x4 wavefront table (h264_scan.I4_WAVE, set in
+  its constant memory) holds each sub-block once, at most two a step,
+  after every neighbour it reads, and leaves unavailable the top-rights
+  that decode order makes so.
 
 The kernels themselves run only on the card: tests/test_torch_h264_scan_
 cuda.py holds them against their plain versions."""
@@ -39,7 +43,9 @@ from jmcodec_tpu.parallel import spatial as JSP
 from jmcodec_tpu.parallel.mesh import ShardingConfig as JCfg
 from jmcodec_tpu.parallel.mesh import build_mesh as jmesh
 from jmcodec_tpu_torch.api.h264_inter import decode_h264, parse_h264
+from jmcodec_tpu_torch.codec.h264 import macroblock as MB
 from jmcodec_tpu_torch.kernels import h264_scan as HS
+from jmcodec_tpu_torch.kernels import recon as RC
 from jmcodec_tpu_torch.kernels import recon_tiles as RT
 from jmcodec_tpu_torch.parallel import distributed as D
 from jmcodec_tpu_torch.parallel import spatial as SP
@@ -336,7 +342,7 @@ def _with_lane_above(tiles, d, halo, k0, p):
 
 
 def _plain_launch_intra(out, named, has_inter, walk, d0, d1, halo=None,
-                        k0=0):
+                        k0=0, scratch=None, ticket=0):
     """h264_scan._launch_intra's plain version, diagonal by diagonal: the
     torch scan's step on this band with the halo as an extra lane 0 (a
     lane that takes part in nothing: invalid, all zero)."""
@@ -358,7 +364,8 @@ def _plain_launch_intra(out, named, has_inter, walk, d0, d1, halo=None,
             out[p][:, d] = ys[p][:, 1:]
 
 
-def _plain_launch_deblock(out, named, t0, t1, halo=None, hqp=None, k0=0):
+def _plain_launch_deblock(out, named, t0, t1, halo=None, hqp=None, k0=0,
+                          scratch=None, ticket=0):
     """h264_scan._launch_deblock's plain version, diagonal by diagonal:
     the torch scan over the diagonals t-2, t-1 and t with the halo as an
     extra lane 0 and bS only on diagonal t, so that it filters diagonal t
@@ -447,3 +454,74 @@ def test_row_sharded_kernel_route_matches_the_decode_and_jax(row_pictures,
             assert counts["lane_exchanges"] == 0
             for a, b in zip(got, w):
                 assert np.array_equal(a, b)
+
+
+def _wave_steps():
+    """{sub-block: its step in h264_scan.I4_WAVE}, checking that every
+    step holds at most two and every sub-block occurs once."""
+    wave = HS.I4_WAVE
+    assert wave.shape == (10, 2) and wave.dtype == np.int32
+    steps = {}
+    for step, row in enumerate(wave):
+        assert (row >= 0).sum() >= 1
+        for blk in row[row >= 0].tolist():
+            assert blk not in steps
+            steps[blk] = step
+    assert sorted(steps) == list(range(16))
+    return steps
+
+
+def _block_at(bx, by):
+    """The decode-order index of the sub-block at sample (bx, by) of the
+    macroblock, or None outside it."""
+    for i in range(16):
+        if (int(MB.BLK_X[i]), int(MB.BLK_Y[i])) == (bx, by):
+            return i
+    return None
+
+
+def test_i4_wave_holds_each_sub_block_once_two_a_step():
+    steps = _wave_steps()
+    for blk, step in steps.items():
+        assert step == int(MB.BLK_X[blk]) // 4 + 2 * (int(MB.BLK_Y[blk]) // 4)
+    # decode order inside a step: the kernel's slots are the wave's columns
+    assert all(r[0] < r[1] for r in HS.I4_WAVE if r[1] >= 0)
+
+
+def test_i4_wave_reads_only_earlier_steps():
+    """Every neighbour a sub-block reads inside its macroblock (left, top,
+    top-left, and the top-right where _TR_SRC calls it available) lies on
+    an earlier step of the wavefront."""
+    steps = _wave_steps()
+    for blk in range(16):
+        bx, by = int(MB.BLK_X[blk]), int(MB.BLK_Y[blk])
+        reads = [(bx - 4, by), (bx, by - 4), (bx - 4, by - 4)]
+        if RC._TR_SRC[blk] == 0:
+            reads.append((bx + 4, by - 4))
+        for x, y in reads:
+            nb = _block_at(x, y)
+            if nb is not None:
+                assert steps[nb] < steps[blk], (blk, nb)
+
+
+def test_an_unavailable_top_right_stays_unavailable():
+    """_TR_SRC (the kernel's c_tr_src) follows decode order (8.3.1.2,
+    6.4.11.4), not the wavefront: a top-right inside the macroblock that
+    decodes later is unavailable (3) even where the wavefront computes it
+    first (blocks 4 and 12 come before 3 and 11); one in the macroblock to
+    the right is unavailable; the top and top-right macroblocks' are read
+    under a_t (1) and a_tr (2)."""
+    steps = _wave_steps()
+    assert steps[4] < steps[3] and steps[12] < steps[11]
+    for blk in range(16):
+        bx, by = int(MB.BLK_X[blk]), int(MB.BLK_Y[blk])
+        tr = _block_at(bx + 4, by - 4)
+        if by == 0:
+            want = 1 if bx < 12 else 2
+        elif tr is None or tr > blk:
+            want = 3
+        else:
+            want = 0
+        assert RC._TR_SRC[blk] == want, blk
+    assert RC._TR_SRC[3] == RC._TR_SRC[11] == 3
+    assert HS._TR_SRC is RC._TR_SRC
