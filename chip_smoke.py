@@ -33,17 +33,25 @@ non-zero:
      TU size, all 35 modes, the strong filter) and the hard ones (all-4x4
      lanes, lanes without a TU, z-scan Z, unavailable border patches,
      residuals at the int16 extremes), also for one lane and an odd count
-  4. decode the fixture on the card: the walk kernel launched twice per
-     scan step, every frame/plane equal to the committed libavcodec
-     SHA-256 digests, and equal to the same batch decoded with
-     walk_reference
+  4. decode the fixture on the card: the hevc_scan kernel launched twice
+     (one persistent launch a scan: luma, then Cb + Cr), hevc_walk never
+     (its device code runs inside hevc_scan), every frame/plane equal to
+     the committed libavcodec SHA-256 digests, and equal to the same batch
+     decoded on the plain route (the torch scan with walk_reference a
+     step), each scan's planes to that route's scan
   5. timing (median of 3 after a warm-up): end-to-end fps; device-only
      fps, with the time at which the host had issued the decode's last
      launch (a device that finishes long after it is the bound, one that
-     finishes just after it waited on the host); the walk kernel against
-     walk_reference at the middle scan step, with that step's active TUs
-     per lane and the kernel's cycles per active TU of its longest lane;
-     and the kernel's time at every scan step
+     finishes just after it waited on the host), the decode's kernel
+     launches and device busy time (torch.profiler); each hevc_scan
+     launch's device time (the median of 3 profiler runs) against its
+     bound, the time of one step of its CTB chain, the plain scan's wall
+     (phase 4's) and the walks alone of the torch scan (the steps x the
+     walk kernel's step time); then, on the torch scan's route (one
+     hevc_walk launch a step), the walk kernel against walk_reference at
+     the middle scan step, with that step's active TUs per lane and the
+     kernel's cycles per active TU of its longest lane, and the kernel's
+     time at every scan step
   6. the dequant_idct kernel against dequant_idct_reference, bit for bit,
      on seeded inputs: N = 700 and N = 1, every qp 0..51, levels over the
      full int16 range, with and without the DC splice, int16 and int32
@@ -55,17 +63,18 @@ non-zero:
   8. timing of the H.264 path as in phase 5, the batch decode's kernel
      launches and device busy time (torch.profiler), and the dequant_idct
      kernel against dequant_idct_reference at the path's two shapes
-  9. decode the HEVC inter fixture on the card (decode_hevc): the walk
-     kernel launched once per scan step that holds a TU and skipped on the
-     others, all 48 planes in output order equal to the committed
-     libavcodec SHA-256 digests
+  9. decode the HEVC inter fixture on the card (decode_hevc): hevc_scan
+     launched twice a picture, hevc_walk never, all 48 planes in output
+     order equal to the committed libavcodec SHA-256 digests
  10. timing of the inter path (median of 3): end-to-end fps (native parse
      + device decode, picture by picture in decode order); device-only fps
      (the plans the parse recorded, replayed through the device decode
      with its pyramid cache), with the time at which the host had issued
-     the last launch; kernel launches per picture (one replay under
-     torch.profiler); walk launches taken and skipped; and the walk kernel
-     against walk_reference at the middle scan step of the first P picture
+     the last launch; kernel launches per picture and the device's busy
+     time (one replay under torch.profiler); the first P picture's two
+     hevc_scan launches against scan_reference (bit for bit, device ms,
+     plain wall, bound); and the walk kernel against walk_reference at the
+     middle scan step of that picture on the torch scan's route
  11. decode the H.264 P fixture on the card (decode_h264): the
      dequant_idct kernel launched twice per picture, h264_intra once a
      picture that holds an intra macroblock (the IDR, a P picture with a
@@ -89,8 +98,8 @@ non-zero:
      digests; end-to-end fps (one run) and the session's stage timers
  14. the HEVC session at 1080p: the HEVC inter fixture (16 pictures), then
      the HEVC all-intra fixture (2 pictures), the same way; every picture
-     decoded on the device, every plane equal to its digest; fps and walk
-     launches of each
+     decoded on the device, every plane equal to its digest; fps and
+     hevc_scan launches of each (two a picture)
  15. the small session fixtures through DecoderSession() (B with POC type
      0, High with CABAC and the 8x8 transform, I_PCM, three IDR): every
      plane equal to its digest, as many pictures on the device and on the
@@ -107,15 +116,16 @@ non-zero:
      fixture (an I and two P pictures, QP varying from cell to cell) in
      1 MiB chunks; the native parser refuses cu_qp_delta, so every
      picture is parsed in Python (plans_python) and decoded on the device
-     (frames_device), the walk kernel launched once per scan step that
-     holds a TU, all 9 planes equal to the libavcodec digests; end-to-end
+     (frames_device), hevc_scan launched twice a picture, all 9 planes
+     equal to the libavcodec digests; end-to-end
      fps and the stage timers per picture (host_parse: the Python parse;
      device_recon: the host's issue of the device decode)
  17. the small HEVC host-route fixtures through DecoderSession() (cu_qp_
      delta I, P and B; two slices a picture; transform skip; motion past
      the MC pad; five references): every plane equal to its digest, as
      many pictures on the device (frames_device) and on the host
-     (frames_host) as the CPU tests assert
+     (frames_host) as the CPU tests assert, hevc_scan twice a picture on
+     the card
 
  18. the encoder at 1080p: EncoderSession(EncoderParams()) (1080p30, 2
      Mb/s VBR, GOP 30, engine auto: the device encoder on the card) fed
@@ -152,17 +162,16 @@ non-zero:
      shapes
  21. decode_plans_pipelined on phase 4's batch of 16 as two batches of 8
      with its default devices (one card: scan and filters on it, each
-     stage on a stream of its own): the walk launched twice a scan step
-     per batch, every plane equal to the digests and to
-     decode_frames_hevc_batch; the kernels by stream (profiled) and the
-     fps
+     stage on a stream of its own): hevc_scan launched twice a batch,
+     every plane equal to the digests and to decode_frames_hevc_batch;
+     the kernels by stream (profiled) and the fps
  22. the row-sharded decode at sp = 1 of the H.264 P fixture's IDR and
      of its second P picture (the first one's vertical MVs pass the halo
      budget and are refused, as in the reference, which is checked):
      dequant_idct twice a picture, the planes equal to the digests, the
      IDR to the dequant_idct_reference decode
  23. the CLIs on the card: jmx_decode of the HEVC inter fixture (the
-     digests; the walk once per scan step with a TU); jmx_transcode
+     digests; hevc_scan twice a picture); jmx_transcode
      --scale 2 of the first three pictures of the H.264 P fixture (1080p
      to 960x540, one GOP) into the committed SHA-256 of the JAX package's
      transcode with its device engine (tests/data/transcode_1080p.
@@ -175,7 +184,7 @@ non-zero:
  25. the bench's two batched figures at 1080p through the port's
      tools/bench.py (bench_hevc, bench_h264), one repeat each: the HEVC
      batch of 16 and the H.264 batch of 32, every plane equal to the
-     digests, the walk launched 124 times and dequant_idct twice in the
+     digests, hevc_scan and dequant_idct launched twice each in the
      checked decode; end-to-end and device-only fps (the other four
      figures are timed by phases 12-14 and 18)
  26. jmx_quality --engine device at its default size (320x240), 4 frames,
@@ -201,6 +210,18 @@ non-zero:
      intra scan; its device engine deblocks each P frame, one launch a
      frame), and their kernels' records count the launches of every path
      driven
+
+ 29. (run with phase 3, before the HEVC paths) the hevc_scan kernel
+     against scan_reference, bit for bit, on the seeded planes of
+     tools/fixtures.synth_scan_planes (synth_state_hard's kinds laid over
+     whole planes: all-4x4 CTBs, CTBs without a TU, int16-extreme
+     residuals and bases, z-scan Z, isolated CTBs, a partial right
+     column) at CTU 64, 32 and 16, luma and Cb + Cr, with and without an
+     inter base, then on more lanes than the card holds CTAs of the
+     kernel at once. Every HEVC path checks that each scan was one
+     hevc_scan launch and that hevc_walk was not launched; hevc_scan's
+     record counts the launches of every path driven, hevc_walk's record
+     (its times from phases 5 and 10, on the torch scan's route) none
 
 With --sp N (N > 1; needs N cards) only phases 1-2 and this one run:
 
@@ -270,6 +291,7 @@ from jmcodec_tpu_torch.codec.hevc.refdec import HevcRefDecoder
 from jmcodec_tpu_torch.kernels import _build
 from jmcodec_tpu_torch.kernels import encode_tiles as ET
 from jmcodec_tpu_torch.kernels import h264_scan as HS
+from jmcodec_tpu_torch.kernels import hevc_scan as HSC
 from jmcodec_tpu_torch.kernels import hevc_tables as HT
 from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
@@ -313,7 +335,8 @@ from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
                                               quality_streams,
                                               session_corpus,
                                               session_fixture,
-                                              synth_idct_blocks, synth_state,
+                                              synth_idct_blocks,
+                                              synth_scan_planes, synth_state,
                                               synth_state_hard,
                                               synth_state_inter,
                                               transcode_fixture)
@@ -505,6 +528,7 @@ def check_digests(planes, digests, what):
 
 def reset_counts():
     HW.LAUNCHES = 0
+    HSC.LAUNCHES = 0
     ID.LAUNCHES = 0
     HS.INTRA_LAUNCHES = 0
     HS.DEBLOCK_LAUNCHES = 0
@@ -529,9 +553,135 @@ def scan_counts(what, intra=">0", deblock=">0"):
     return got
 
 
+# hevc_scan's launches over every path this run drives (its record's
+# "launches"), and by phase
+HEVC_SCAN = {"launches": 0, "by_phase": {}}
+
+
+def hevc_scan_counts(what, want):
+    """hevc_scan's launches since reset_counts(), added to HEVC_SCAN. They
+    must be `want` (two a decode of a picture batch: luma, then Cb + Cr),
+    and hevc_walk must not have been launched: on every HEVC path the walk
+    runs inside the scan kernel. Returns the launches."""
+    n = HSC.LAUNCHES
+    check(n == want, f"{what}: hevc_scan launched {n} times, want {want}")
+    check(HW.LAUNCHES == 0, f"{what}: hevc_walk launched {HW.LAUNCHES} "
+                            f"times, outside hevc_scan")
+    HEVC_SCAN["launches"] += n
+    HEVC_SCAN["by_phase"][what] = n
+    return n
+
+
+def hevc_scan_capture(fn):
+    """fn() with hevc_tiles' scan_planes recording its arguments: (fn's
+    result, [(args, kwargs), ...] of its launches in order)."""
+    cap, saved = [], HTT.scan_planes
+
+    def run(*a, **kw):
+        cap.append((a, kw))
+        return saved(*a, **kw)
+
+    HTT.scan_planes = run
+    try:
+        out = fn()
+    finally:
+        HTT.scan_planes = saved
+    return out, cap
+
+
+def hevc_plain_scans(fn):
+    """fn() (a decode on the plain route) with each of its torch scans
+    (hevc_tiles.scan_torch) timed: (fn's result, [(the scan's planes, its
+    wall in ms), ...] in order)."""
+    cap, saved = [], HTT.scan_torch
+
+    def run(*a, **kw):
+        out, dt = timed(lambda: saved(*a, **kw))
+        cap.append((out, dt * 1e3))
+        return out
+
+    HTT.scan_torch = run
+    try:
+        out = fn()
+    finally:
+        HTT.scan_torch = saved
+    return out, cap
+
+
+def scan_bound(args, kw):
+    """Bound of one hevc_scan launch on scan_planes' arguments. Bytes: the
+    residual (and base) planes and the three cell maps in, the int32
+    planes out. Operations, for the TUs the maps hold (on every plane of a
+    map), counted as walk_bound counts them: per TU of size n, 7 per
+    reference sample and 8 per predicted pixel."""
+    resid, zidx, tu, mode = args
+    P, G = resid.shape[0], zidx.shape[0]
+    T = min(kw["C"], kw["max_tu"])
+    tu_h = tu.cpu().numpy()
+    ys, xs = np.indices(tu_h.shape[1:])
+    ops = 0
+    for v in range(2, T.bit_length()):
+        n, n4 = 1 << v, 1 << (v - 2)
+        k = int(((tu_h == v) & (ys % n4 == 0) & (xs % n4 == 0)).sum())
+        ops += k * (P // G) * (7 * (4 * n + 1) + 8 * n * n)
+    nb = nbytes(resid, zidx, tu, mode, kw.get("base")) + 4 * resid.numel()
+    return bound_ms(nb, ops)
+
+
+# phase 29's synthetic scans: (luma CTB size, plane, frames, ctb_h, ctb_w,
+# inter base)
+SCAN_CASES = [(64, "luma", 2, 3, 5, False), (64, "chroma", 2, 3, 5, False),
+              (64, "luma", 1, 4, 4, True), (64, "chroma", 1, 4, 4, True),
+              (32, "luma", 2, 3, 5, False), (32, "chroma", 3, 3, 4, True),
+              (16, "luma", 3, 4, 5, True), (16, "chroma", 2, 4, 5, False)]
+
+
+def check_scan_planes(dev):
+    """Phase 29: hevc_scan == scan_reference, bit for bit, on the seeded
+    planes of synth_scan_planes (every CTB kind of synth_state_hard, a
+    partial right column) at CTU 64, 32 and 16, luma and Cb + Cr, with and
+    without an inter base; then on more lanes than the card holds CTAs
+    of the kernel at once. Returns the largest error."""
+    err, n = 0, 0
+
+    def one(ctu, plane, frames, ctb_h, ctb_w, inter, seed):
+        C, max_tu = (ctu, 32) if plane == "luma" else (ctu // 2, 16)
+        chroma = plane == "chroma"
+        arrays = synth_scan_planes(C, max_tu, frames * (1 + chroma),
+                                   frames, ctb_h, ctb_w, seed=seed,
+                                   inter=inter, partial=True)
+        t = [None if a is None else torch.from_numpy(a).to(dev)
+             for a in arrays]
+        kw = dict(C=C, skew=HT.skew_for(ctu), max_tu=max_tu,
+                  is_chroma=chroma, strong=not chroma, base=t[4])
+        got = HSC.scan_planes(*t[:4], **kw)
+        want = HSC.scan_reference(*t[:4], **kw)
+        torch.cuda.synchronize()
+        e = max_abs(got, want)
+        check(e == 0, f"phase 29 CTU {ctu} {plane} x{frames} "
+                      f"{'inter' if inter else 'intra'}: hevc_scan != "
+                      f"scan_reference")
+        return e, t[0].shape[0] * ctb_h
+
+    for i, case in enumerate(SCAN_CASES):
+        e, _ = one(*case, seed=20 + i)
+        err, n = max(err, e), n + 1
+    ctas, _ = HSC.resident_ctas(C=8, skew=HT.skew_for(16), max_tu=16)
+    e, lanes = one(16, "chroma", ctas // 6 + 1, 3, 2, False, seed=40)
+    check(lanes > ctas, f"phase 29: {lanes} lanes, {ctas} resident CTAs")
+    err = max(err, e)
+    say(f"phase 29: hevc_scan == scan_reference on {n} seeded scans (CTU "
+        f"64, 32 and 16; luma and Cb + Cr; 1-3 frames; with and without "
+        f"an inter base; all-4x4, no-TU, extreme-residual and isolated "
+        f"CTBs, a partial right column) and on {lanes} lanes of CTU-16 "
+        f"chroma, more than the {ctas} CTAs that fit the card at once; "
+        f"max_abs_err {err}")
+    return err
+
+
 def hevc_path(dev, card, err):
-    """Phases 4-5 (err: phase 3's); returns the hevc_walk record and the
-    path's figures."""
+    """Phases 4-5 (err: phase 3's); returns the hevc_walk record, the
+    hevc_scan record and the path's figures."""
     # ---- phase 4: the path on the card ----
     digests = fixture_digests()
     stream = fixture_batch_stream()
@@ -544,22 +694,32 @@ def hevc_path(dev, card, err):
     args = HTT.stack_plans(plans, dev)
     torch.cuda.synchronize()
     reset_counts()
-    Y, U, V = HTT.decode_frames_hevc_batch(*args)
+    (Y, U, V), scans = hevc_scan_capture(
+        lambda: HTT.decode_frames_hevc_batch(*args))
     torch.cuda.synchronize()
-    launches = HW.LAUNCHES
-    check(launches == 2 * steps, f"{launches} walk launches, {steps} steps")
+    launches = hevc_scan_counts("phase 4", 2)
     check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC path")
     check_digests((Y, U, V), digests, "hevc")
-    ref = HTT.decode_frames_hevc_batch(*args, walk_fn=HW.walk_reference)
-    torch.cuda.synchronize()
+    # the plain route (the torch scan with walk_reference a step), each
+    # scan's output and wall kept: the kernel's yardstick on the path's
+    # own inputs
+    ref, plain = hevc_plain_scans(
+        lambda: HTT.decode_frames_hevc_batch(*args,
+                                             walk_fn=HW.walk_reference))
     for a, b, plane in zip((Y, U, V), ref, "YUV"):
         e = max_abs(a, b)
         err = max(err, e)
         check(e == 0, f"decode != walk_reference decode ({plane})")
-    say(f"phase 4: {BATCH}x {p0.width}x{p0.height} CTU {C}: {steps} scan "
-        f"steps, hevc_walk launched {launches} times; all {BATCH * 3} "
-        f"planes match the libavcodec SHA-256 digests and the "
-        f"walk_reference decode")
+    scan_err = 0
+    for (a, kw), (want, _), key in zip(scans, plain, ("luma", "chroma")):
+        e = max_abs(HSC.scan_planes(*a, **kw), want)
+        scan_err = max(scan_err, e)
+        check(e == 0, f"hevc_scan {key} != the plain scan")
+    say(f"phase 4: {BATCH}x {p0.width}x{p0.height} CTU {C}: two scans of "
+        f"a {steps}-CTB chain, hevc_scan launched {launches} times (one a "
+        f"scan), hevc_walk none; all {BATCH * 3} planes match the "
+        f"libavcodec SHA-256 digests and the walk_reference decode, and "
+        f"each scan's planes the plain scan's")
     del ref
 
     # ---- phase 5: timing ----
@@ -576,8 +736,20 @@ def hevc_path(dev, card, err):
     t_e2e, _ = sync_time(e2e, REPS)
     device_only()
     t_dev, t_issued = sync_time(device_only, REPS)
+    n_kernels, busy = kernel_busy(device_only)
 
-    # per-step walk time on the real states of the middle scan step
+    # each scan kernel on the path's inputs: device ms of its one launch
+    scan_t = {}
+    for (a, kw), (_, p_ms), key in zip(scans, plain, ("luma", "chroma")):
+        _, ms, traced = scan_ms(lambda: HSC.scan_planes(*a, **kw),
+                                "hevc_scan_kernel")
+        ctas, smem = HSC.resident_ctas(C=kw["C"], skew=kw["skew"],
+                                       max_tu=kw["max_tu"])
+        scan_t[key] = (ms, p_ms, scan_bound(a, kw), traced,
+                       a[0].shape[0] * ctb_h, ctas, smem)
+
+    # per-step walk time on the real states of the middle scan step (the
+    # torch scan's route, one hevc_walk launch a step)
     captured = {}
 
     def capture(F, Z, resid, tu, mode, **kw):
@@ -616,7 +788,18 @@ def hevc_path(dev, card, err):
         f"{BATCH / t_dev:.2f} fps ({t_dev * 1000:.1f} ms); the host had "
         f"issued the device-only decode's last launch at "
         f"{t_issued * 1000:.1f} ms, the device finished "
-        f"{(t_dev - t_issued) * 1000:.1f} ms later")
+        f"{(t_dev - t_issued) * 1000:.1f} ms later; the device-only decode "
+        f"is {n_kernels} kernel launches, the device busy {busy:.2f} ms "
+        f"(torch.profiler)")
+    for key, (ms, p_ms, bound, traced, lanes, ctas, smem) in scan_t.items():
+        say(f"phase 5 [{card}]: hevc_scan {key} ({lanes} lanes, "
+            f"{min(lanes, ctas)} CTAs of {smem} B shared memory): kernel "
+            f"{ms:.4f} ms a scan (median of {traced} traced runs), one step "
+            f"of its {steps}-CTB chain {ms / steps * 1000:.2f} us; the torch "
+            f"scan with the walk kernel a step took {steps} x "
+            f"{step_ms[key][0]:.4f} = {steps * step_ms[key][0]:.3f} ms of "
+            f"walks alone; plain scan {p_ms:.1f} ms (its wall); bound "
+            f"{bound[0]:.5f} ms ({bound[2]})")
     for key, (k_ms, p_ms) in step_ms.items():
         say(f"phase 5 [{card}]: walk step {key} (B="
             f"{captured[key][0][0][0].shape[0]}): kernel {k_ms:.4f} ms, "
@@ -633,11 +816,13 @@ def hevc_path(dev, card, err):
             f"{ev[0]:.4f}, last {ev[-1]:.4f})")
 
     mean = lambda d, i: statistics.mean(v[i] for v in d.values())
+    # hevc_walk: no launch of its own on any path (its device code runs
+    # inside hevc_scan); its times are those of the torch scan's steps
     rec = {"name": "hevc_walk", "route": "cuda",
            "source": "jmcodec_tpu_torch/csrc/hevc_walk.cu",
            "replaces": "jmcodec_tpu/kernels/hevc_walk_pallas.py:560",
-           "launches": launches, "launches_hevc_intra": launches,
-           "max_abs_err": err,
+           "launches": 0, "runs_inside": "hevc_scan",
+           "launches_checks": HW.LAUNCHES, "max_abs_err": err,
            "ms": mean(step_ms, 0), "plain_ms": mean(step_ms, 1),
            "bound_ms": mean(bounds, 0),
            "bound_by": max(bounds.values())[1], "library_ms": None,
@@ -656,12 +841,31 @@ def hevc_path(dev, card, err):
                     f"steps_ms_{key}": {"min": min(ev),
                                         "median": statistics.median(ev),
                                         "max": max(ev), "sum": sum(ev)}})
+    scan_rec = {"name": "hevc_scan", "route": "cuda",
+                "source": "jmcodec_tpu_torch/csrc/hevc_scan.cu",
+                "replaces": "jmcodec_tpu/kernels/hevc_tiles.py:712",
+                "launches": 0, "max_abs_err": scan_err,
+                "ms": mean(scan_t, 0), "plain_ms": mean(scan_t, 1),
+                "bound_ms": statistics.mean(v[2][0] for v in scan_t.values()),
+                "bound_by": max(v[2] for v in scan_t.values())[1],
+                "library_ms": None, "chain_ctbs": steps,
+                "launches_per_decode": launches}
+    for key, (ms, p_ms, bound, traced, lanes, ctas, smem) in scan_t.items():
+        scan_rec.update({f"ms_{key}": ms, f"plain_ms_{key}": p_ms,
+                         f"bound_ms_{key}": bound[0],
+                         f"step_ms_{key}": ms / steps,
+                         f"walk_steps_ms_{key}": steps * step_ms[key][0],
+                         f"runs_traced_{key}": traced, f"lanes_{key}": lanes,
+                         f"resident_ctas_{key}": ctas,
+                         f"smem_bytes_{key}": smem})
     figures = {"slice": "hevc 1080p all-intra batch decode",
                "batch": BATCH, "e2e_fps": BATCH / t_e2e,
                "device_fps": BATCH / t_dev,
                "device_only_issued_ms": t_issued * 1000,
-               "device_only_wall_ms": t_dev * 1000, "card": card}
-    return rec, figures
+               "device_only_wall_ms": t_dev * 1000,
+               "kernel_launches": n_kernels, "device_busy_ms": busy,
+               "card": card}
+    return rec, scan_rec, figures
 
 
 def check_idct_kernel(dev):
@@ -847,11 +1051,11 @@ def kernel_launches(fn):
     return kernel_busy(fn)[0]
 
 
-def hevc_inter_path(dev, card, walk_rec, err):
-    """Phases 9-10 (err: phase 3's). Returns the hevc_walk record (walk_rec
-    with the inter path's launches and step times added, or a record of
-    this path alone when the intra path was not driven) and the path's
-    figures."""
+def hevc_inter_path(dev, card, walk_rec, scan_rec, err):
+    """Phases 9-10 (err: phase 3's). Returns the hevc_walk and hevc_scan
+    records (walk_rec and scan_rec with the inter path's times added, or
+    records of this path alone when the intra path was not driven) and
+    the path's figures."""
     digests = fixture_digests(INTER_DIGESTS)
     stream = inter_fixture_stream()
 
@@ -866,24 +1070,24 @@ def hevc_inter_path(dev, card, walk_rec, err):
     reset_counts()
     frames = HevcRefDecoder(recording).decode(stream)
     torch.cuda.synchronize()
-    launches = HW.LAUNCHES
-    check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC inter path")
     check(len(frames) == len(plans) == len(digests),
           f"{len(frames)} frames, {len(plans)} pictures")
+    launches = hevc_scan_counts("phase 9", 2 * len(plans))
+    check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC inter path")
     check_digests([torch.stack([f[k] for f in frames]) for k in range(3)],
                   digests, "hevc inter")
     steps = [HTT.walk_steps(p) for p in plans]
     n_steps = sum(len(y) + len(c) for y, c in steps)
     taken = sum(sum(y) + sum(c) for y, c in steps)
-    check(launches == taken, f"{launches} walk launches, {taken} steps "
-                             f"with a TU")
     p0 = plans[0]
     say(f"phase 9: {len(plans)} pictures {p0.width}x{p0.height} CTU "
         f"{1 << p0.log2_ctb} (decode order POC "
-        f"{[p.poc for p in plans]}): hevc_walk launched {launches} times "
-        f"over {n_steps} scan steps, {n_steps - launches} steps without a "
-        f"TU skipped; all {3 * len(frames)} planes in output order match "
-        f"the libavcodec SHA-256 digests")
+        f"{[p.poc for p in plans]}): hevc_scan launched {launches} times "
+        f"(two a picture), hevc_walk none; {n_steps - taken} of the "
+        f"{n_steps} scan steps hold no TU (the torch scan skips them, the "
+        f"kernel passes over every CTB without a TU); all "
+        f"{3 * len(frames)} planes in output order match the libavcodec "
+        f"SHA-256 digests")
 
     # ---- phase 10: timing ----
     def e2e():
@@ -896,13 +1100,27 @@ def hevc_inter_path(dev, card, walk_rec, err):
     t_e2e, _ = sync_time(e2e, REPS)
     device_only()
     t_dev, t_issued = sync_time(device_only, REPS)
-    n_kernels = kernel_launches(device_only)
+    n_kernels, busy = kernel_busy(device_only)
     n = len(plans)
 
-    # the walk at the middle scan step of the first P picture, on the
-    # states the decode gives it
+    # the first P picture: its two scans through the kernel, and the walk
+    # at its middle scan step on the torch scan's route
     check(plans[1].ref_pocs == [p0.poc], "picture 1 is not a P picture")
     i_planes = decode_plans(plans[:1], dev)[0]
+    refs = [HTT.prep_hevc_ref(*i_planes)]
+    _, scans = hevc_scan_capture(
+        lambda: HTT.decode_plan_inter(plans[1], refs, dev))
+    C = 1 << p0.log2_ctb
+    chain = p0.Wp // C + HT.skew_for(C) * (p0.Hp // C - 1)
+    scan_t, scan_err = {}, 0
+    for (a, kw), key in zip(scans, ("luma", "chroma")):
+        got, ms, traced = scan_ms(lambda: HSC.scan_planes(*a, **kw),
+                                  "hevc_scan_kernel")
+        want, t_plain = timed(lambda: HSC.scan_reference(*a, **kw))
+        e = max_abs(got, want)
+        scan_err = max(scan_err, e)
+        check(e == 0, f"inter {key} scan: hevc_scan != scan_reference")
+        scan_t[key] = (ms, t_plain * 1e3, scan_bound(a, kw), traced)
     captured = {}
 
     def capture(F, Z, resid, tu, mode, **kw):
@@ -910,8 +1128,7 @@ def hevc_inter_path(dev, card, walk_rec, err):
         captured.setdefault(key, []).append(((F, Z, resid, tu, mode), kw))
         return HW.walk(F, Z, resid, tu, mode, **kw)
 
-    HTT.decode_plan_inter(plans[1], [HTT.prep_hevc_ref(*i_planes)], dev,
-                          walk_fn=capture)
+    HTT.decode_plan_inter(plans[1], refs, dev, walk_fn=capture)
     step_ms, bounds, tus = {}, {}, {}
     for key in ("luma", "chroma"):
         wa, kw = captured[key][len(captured[key]) // 2]
@@ -934,8 +1151,14 @@ def hevc_inter_path(dev, card, walk_rec, err):
         f"with the pyramid cache); the host had issued the last launch at "
         f"{t_issued * 1000:.1f} ms, the device finished "
         f"{(t_dev - t_issued) * 1000:.1f} ms later; {n_kernels} kernel "
-        f"launches ({n_kernels / n:.0f} per picture), hevc_walk {launches} "
-        f"taken and {n_steps - launches} skipped")
+        f"launches ({n_kernels / n:.0f} per picture), the device busy "
+        f"{busy:.2f} ms (torch.profiler)")
+    for key, (ms, p_ms, bound, traced) in scan_t.items():
+        say(f"phase 10 [{card}]: hevc_scan {key} of the first P picture: "
+            f"kernel {ms:.4f} ms a scan (median of {traced} traced runs), "
+            f"one step of its {chain}-CTB chain {ms / chain * 1000:.2f} us; "
+            f"scan_reference {p_ms:.1f} ms (its wall); bound "
+            f"{bound[0]:.5f} ms ({bound[2]})")
     for key, (k_ms, p_ms) in step_ms.items():
         say(f"phase 10 [{card}]: walk step {key} of the first P picture "
             f"(B={captured[key][0][0][0].shape[0]}, step {tus[key][2] // 2} "
@@ -944,32 +1167,45 @@ def hevc_inter_path(dev, card, walk_rec, err):
             f"ms, walk_reference {p_ms:.2f} ms, bound {bounds[key][0]:.5f} "
             f"ms ({bounds[key][2]})")
 
-    inter = {"launches_hevc_inter": launches,
-             "skipped_hevc_inter": n_steps - launches}
-    for key in ("luma", "chroma"):
-        inter.update({f"ms_inter_{key}": step_ms[key][0],
-                      f"plain_ms_inter_{key}": step_ms[key][1],
-                      f"bound_ms_inter_{key}": bounds[key][0]})
+    mean = lambda d, i: statistics.mean(v[i] for v in d.values())
     if walk_rec is None:
-        mean = lambda d, i: statistics.mean(v[i] for v in d.values())
         walk_rec = {"name": "hevc_walk", "route": "cuda",
                     "source": "jmcodec_tpu_torch/csrc/hevc_walk.cu",
                     "replaces": "jmcodec_tpu/kernels/hevc_walk_pallas.py:560",
-                    "launches": 0, "max_abs_err": 0,
+                    "launches": 0, "runs_inside": "hevc_scan",
+                    "max_abs_err": 0,
                     "ms": mean(step_ms, 0), "plain_ms": mean(step_ms, 1),
                     "bound_ms": mean(bounds, 0),
                     "bound_by": max(bounds.values())[1], "library_ms": None}
-    walk_rec.update(inter)
-    walk_rec["launches"] += launches
+    if scan_rec is None:
+        scan_rec = {"name": "hevc_scan", "route": "cuda",
+                    "source": "jmcodec_tpu_torch/csrc/hevc_scan.cu",
+                    "replaces": "jmcodec_tpu/kernels/hevc_tiles.py:712",
+                    "launches": 0, "max_abs_err": 0,
+                    "ms": mean(scan_t, 0), "plain_ms": mean(scan_t, 1),
+                    "bound_ms": statistics.mean(v[2][0]
+                                                for v in scan_t.values()),
+                    "bound_by": max(v[2] for v in scan_t.values())[1],
+                    "library_ms": None}
+    for key in ("luma", "chroma"):
+        walk_rec.update({f"ms_inter_{key}": step_ms[key][0],
+                         f"plain_ms_inter_{key}": step_ms[key][1],
+                         f"bound_ms_inter_{key}": bounds[key][0]})
+        ms, p_ms, bound, traced = scan_t[key]
+        scan_rec.update({f"ms_inter_{key}": ms, f"plain_ms_inter_{key}": p_ms,
+                         f"bound_ms_inter_{key}": bound[0],
+                         f"step_ms_inter_{key}": ms / chain,
+                         f"runs_traced_inter_{key}": traced})
     walk_rec["max_abs_err"] = max(walk_rec["max_abs_err"], err)
+    scan_rec["max_abs_err"] = max(scan_rec["max_abs_err"], scan_err)
     figures = {"slice": "hevc 1080p inter stream decode", "pictures": n,
                "e2e_fps": n / t_e2e, "device_fps": n / t_dev,
                "device_only_issued_ms": t_issued * 1000,
                "device_only_wall_ms": t_dev * 1000,
                "kernel_launches_per_picture": n_kernels / n,
-               "walk_launches": launches,
-               "walk_skipped": n_steps - launches, "card": card}
-    return walk_rec, figures
+               "device_busy_ms": busy, "scan_launches": launches,
+               "steps_without_tu": n_steps - taken, "card": card}
+    return walk_rec, scan_rec, figures
 
 
 def h264_inter_path(dev, card, idct_rec, err):
@@ -1134,8 +1370,8 @@ def session_h264_path(dev, card):
 
 
 def session_hevc_path(dev, card):
-    """Phase 14. Returns the hevc_walk launches and the figures."""
-    figures, total = [], 0
+    """Phase 14. Returns the figures."""
+    figures = []
     for what, path, digests in (
             ("inter", INTER_FIXTURE, fixture_digests(INTER_DIGESTS)),
             ("intra", FIXTURE, fixture_digests())):
@@ -1144,26 +1380,25 @@ def session_hevc_path(dev, card):
         n = len(digests)
         reset_counts()
         frames, dt, n_dev, stages = run_session(Codec.HEVC, stream)
-        launches = HW.LAUNCHES
-        total += launches
         check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC session")
         check(n_dev == n, f"hevc {what}: {n_dev} of {n} pictures decoded "
                           f"on the device")
-        check(launches > 0, f"hevc {what}: hevc_walk never launched")
+        # each picture through DeviceRecon: two scans a picture
+        launches = hevc_scan_counts(f"phase 14 {what}", 2 * n_dev)
         check_session_frames(frames, digests, dev, f"hevc {what} session")
         h, w = frames[0][0].shape
         say(f"phase 14 [{card}]: HEVC session, {what} fixture, {n} pictures "
             f"{w}x{h} in 1 MiB chunks: {n / dt:.2f} fps end to end "
-            f"({dt * 1000:.1f} ms), frames_device {n_dev}, hevc_walk "
+            f"({dt * 1000:.1f} ms), frames_device {n_dev}, hevc_scan "
             f"launched {launches} times; all {3 * n} planes match the "
             f"libavcodec SHA-256 digests; stage timers (host issue, ms) "
             f"{stages}")
         figures.append({"slice": f"hevc 1080p {what} session",
                         "pictures": n, "e2e_fps": n / dt,
                         "wall_ms": dt * 1000, "frames_device": n_dev,
-                        "walk_launches": launches, "stages_ms": stages,
+                        "scan_launches": launches, "stages_ms": stages,
                         "card": card})
-    return total, figures
+    return figures
 
 
 def session_small_streams(card):
@@ -1251,7 +1486,7 @@ def session_p_corpus(name):
 
 
 def hevc_cuqp_path(dev, card):
-    """Phase 16. Returns the hevc_walk launches and the figures."""
+    """Phase 16. Returns the figures."""
     stream = cuqp_fixture_stream()
     digests = fixture_digests(CUQP_DIGESTS)
     n = len(digests)
@@ -1267,7 +1502,6 @@ def hevc_cuqp_path(dev, card):
         c0 = counters.snapshot()
         reset_counts()
         frames, dt, n_dev, stages = run_session(Codec.HEVC, stream)
-        launches = HW.LAUNCHES
         c1 = counters.snapshot()
     finally:
         DeviceRecon.__call__ = call
@@ -1278,9 +1512,7 @@ def hevc_cuqp_path(dev, card):
           f"parsed in Python")
     check(all(len(np.unique(p.qp_y)) > 1 for p in plans),
           "hevc cuqp: a picture with one QP")
-    taken = sum(sum(y) + sum(c) for y, c in map(HTT.walk_steps, plans))
-    check(launches == taken, f"hevc cuqp: {launches} walk launches, "
-                             f"{taken} scan steps with a TU")
+    launches = hevc_scan_counts("phase 16", 2 * len(plans))
     check_session_frames(frames, digests, dev, "hevc cuqp session")
     h, w = frames[0][0].shape
     per_pic = {k: round(v / n, 1) for k, v in stages.items()}
@@ -1289,20 +1521,19 @@ def hevc_cuqp_path(dev, card):
         f"{min(int(p.qp_y.min()) for p in plans)}-"
         f"{max(int(p.qp_y.max()) for p in plans)}) in 1 MiB chunks: every "
         f"picture parsed in Python and decoded on the device; {n / dt:.3f} "
-        f"fps end to end ({dt * 1000:.1f} ms), hevc_walk launched "
-        f"{launches} times (once per scan step with a TU); all {3 * n} "
+        f"fps end to end ({dt * 1000:.1f} ms), hevc_scan launched "
+        f"{launches} times (two a picture); all {3 * n} "
         f"planes match the libavcodec SHA-256 digests; stage timers per "
         f"picture (ms; host_parse the Python parse, device_recon the "
         f"host's issue) {per_pic}")
-    return launches, {"slice": "hevc 1080p cu_qp_delta session",
-                      "pictures": n, "e2e_fps": n / dt,
-                      "wall_ms": dt * 1000, "frames_device": n_dev,
-                      "plans_python": n_py, "walk_launches": launches,
-                      "stages_ms_per_picture": per_pic, "card": card}
+    return {"slice": "hevc 1080p cu_qp_delta session", "pictures": n,
+            "e2e_fps": n / dt, "wall_ms": dt * 1000, "frames_device": n_dev,
+            "plans_python": n_py, "scan_launches": launches,
+            "stages_ms_per_picture": per_pic, "card": card}
 
 
 def hevc_host_streams(card):
-    """Phase 17. Returns the hevc_walk launches and the figures."""
+    """Phase 17. Returns the figures."""
     reset_counts()
     paths, t0 = {}, time.perf_counter()
     plans = []
@@ -1328,51 +1559,41 @@ def hevc_host_streams(card):
             check_digests([np.stack([f[k] for f in frames])
                            for k in range(3)], digests, name)
             paths[name] = (n["frames_device"], n_host)
-        launches = HW.LAUNCHES
     finally:
         DeviceRecon.__call__ = call
     check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC session")
-    taken = sum(sum(y) + sum(c) for y, c in map(HTT.walk_steps, plans))
-    check(launches == taken and launches > 0,
-          f"host-route fixtures: {launches} walk launches, {taken} scan "
-          f"steps with a TU in the plans the card took")
+    check(plans, "host-route fixtures: no picture on the card")
+    launches = hevc_scan_counts("phase 17", 2 * len(plans))
     dt = time.perf_counter() - t0
     say(f"phase 17 [{card}]: HEVC host-route fixtures (pictures on the "
         f"device, on the host) {paths}, as the CPU tests assert; every "
-        f"plane matches its libavcodec digest; hevc_walk launched "
-        f"{launches} times (once per scan step with a TU); {dt:.1f} s")
-    return launches, {"slice": "hevc host-route small streams",
-                      "paths": paths, "walk_launches": launches,
-                      "wall_s": dt, "card": card}
+        f"plane matches its libavcodec digest; hevc_scan launched "
+        f"{launches} times (two a picture the card took); {dt:.1f} s")
+    return {"slice": "hevc host-route small streams", "paths": paths,
+            "scan_launches": launches, "wall_s": dt, "card": card}
 
 
-def hevc_host_path(dev, card, walk_rec):
-    """Phases 16-17: add their launches to the hevc_walk record."""
-    launches_16, fig16 = hevc_cuqp_path(dev, card)
-    say(json.dumps(fig16))
+def hevc_host_path(dev, card):
+    """Phases 16-17 (their launches go to HEVC_SCAN)."""
+    say(json.dumps(hevc_cuqp_path(dev, card)))
     torch.cuda.empty_cache()
-    launches_17, fig17 = hevc_host_streams(card)
-    say(json.dumps(fig17))
-    if walk_rec is not None:
-        walk_rec["launches_hevc_host"] = launches_16 + launches_17
-        walk_rec["launches"] += launches_16 + launches_17
+    say(json.dumps(hevc_host_streams(card)))
 
 
-def session_path(dev, card, walk_rec, idct_rec):
-    """Phases 13-15: add the session's launches to the kernels' records."""
+def session_path(dev, card, idct_rec):
+    """Phases 13-15: add the session's launches to the kernels' records
+    (hevc_scan's to HEVC_SCAN)."""
     idct_13, fig13 = session_h264_path(dev, card)
     say(json.dumps(fig13))
     torch.cuda.empty_cache()
-    walk_14, fig14 = session_hevc_path(dev, card)
-    for fig in fig14:
+    for fig in session_hevc_path(dev, card):
         say(json.dumps(fig))
     torch.cuda.empty_cache()
     idct_15, fig15 = session_small_streams(card)
     say(json.dumps(fig15))
-    for rec, n in ((walk_rec, walk_14), (idct_rec, idct_13 + idct_15)):
-        if rec is not None:
-            rec["launches_session"] = n
-            rec["launches"] += n
+    if idct_rec is not None:
+        idct_rec["launches_session"] = idct_13 + idct_15
+        idct_rec["launches"] += idct_13 + idct_15
 
 
 ENC_STAGES = ("enc_idr", "enc_search", "enc_pull", "enc_pack", "enc_recon")
@@ -1671,40 +1892,36 @@ def sharded_decode_path(dev, card):
 
 def kernel_streams(fn):
     """{stream id: CUDA kernel events} of one fn() run under
-    torch.profiler, and the streams of the hevc_walk kernel's events."""
+    torch.profiler, and the streams of the hevc_scan kernel's events."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    streams, walk = {}, set()
+    streams, scan = {}, set()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA:
             continue
         sid = e.device_resource_id()
         streams[sid] = streams.get(sid, 0) + 1
-        if "hevc_walk" in e.name():
-            walk.add(sid)
-    return streams, walk
+        if "hevc_scan" in e.name():
+            scan.add(sid)
+    return streams, scan
 
 
 def pipelined_path(dev, card):
-    """Phase 21. Returns the hevc_walk launches and the figures."""
+    """Phase 21. Returns the figures."""
     digests = fixture_digests()
     workers = os.cpu_count() or 1
     plans = parse_hevc_intra_plans(fixture_batch_stream(), workers=workers)
     p0 = plans[0]
-    C = 1 << p0.log2_ctb
-    steps = p0.Wp // C + HT.skew_for(C) * (p0.Hp // C - 1)
     half = BATCH // 2
     d_scan, d_filter = default_devices()
     torch.cuda.synchronize()
     reset_counts()
     outs = decode_plans_pipelined(plans, batch=half)
     torch.cuda.synchronize()
-    launches = HW.LAUNCHES
     check(len(outs) == 2, f"{len(outs)} batches")
-    check(launches == 2 * steps * 2, f"{launches} walk launches, want 2 a "
-                                     f"scan step of each of 2 batches")
+    launches = hevc_scan_counts("phase 21", 2 * 2)
     check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC pipeline")
     got = [torch.cat([o[k] for o in outs]) for k in range(3)]
     check_digests(got, digests, "pipelined hevc")
@@ -1712,7 +1929,7 @@ def pipelined_path(dev, card):
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           "pipelined decode != decode_frames_hevc_batch")
     del got, want, outs
-    streams, walk_streams = kernel_streams(
+    streams, scan_streams = kernel_streams(
         lambda: decode_plans_pipelined(plans, batch=half))
     t_pipe, t_issued = sync_time(
         lambda: decode_plans_pipelined(plans, batch=half), REPS)
@@ -1720,23 +1937,23 @@ def pipelined_path(dev, card):
         f"{p0.width}x{p0.height} HEVC as 2 batches of {half}: scan stage on "
         f"{d_scan}, filter stage on {d_filter} (one card: both stages on "
         f"it, each on its own stream); kernels by stream "
-        f"{streams} (the walk on {sorted(walk_streams)}); hevc_walk "
-        f"launched {launches} times (2 a scan step of {steps}, per batch); "
+        f"{streams} (the scan kernel on {sorted(scan_streams)}); hevc_scan "
+        f"launched {launches} times (two a batch); "
         f"all {3 * BATCH} planes match the libavcodec digests and "
         f"decode_frames_hevc_batch; {BATCH / t_pipe:.2f} fps "
         f"({t_pipe * 1000:.1f} ms with stack_plans' upload; the host had "
         f"issued the last launch at {t_issued * 1000:.1f} ms; phase 5's "
         f"device-only figure is the batch of 16 without the upload)")
-    check(len(walk_streams) == 1 and len(streams) >= 2,
+    check(len(scan_streams) == 1 and len(streams) >= 2,
           "the scan and filter stages ran on one stream")
-    return launches, {"slice": "pipelined hevc 1080p all-intra decode",
+    return {"slice": "pipelined hevc 1080p all-intra decode",
                       "batches": 2, "batch": half, "fps": BATCH / t_pipe,
                       "wall_ms": t_pipe * 1000,
                       "issued_ms": t_issued * 1000,
                       "devices": [str(d_scan), str(d_filter)],
                       "kernels_by_stream": {str(k): v
                                             for k, v in streams.items()},
-                      "walk_launches": launches, "card": card}
+                      "scan_launches": launches, "card": card}
 
 
 def row_sharded_path(dev, card):
@@ -1802,15 +2019,14 @@ def row_sharded_path(dev, card):
                          "card": card}
 
 
-def parallel_path(dev, card, walk_rec, idct_rec, idct_err):
+def parallel_path(dev, card, idct_rec, idct_err):
     """Phases 20-22: their launches added to the kernels' records (a
     dequant_idct record of phase 20's shapes when no other path made
     one)."""
     idct_20, shapes, err, fig20 = sharded_decode_path(dev, card)
     say(json.dumps(fig20))
     torch.cuda.empty_cache()
-    walk_21, fig21 = pipelined_path(dev, card)
-    say(json.dumps(fig21))
+    say(json.dumps(pipelined_path(dev, card)))
     torch.cuda.empty_cache()
     idct_22, fig22 = row_sharded_path(dev, card)
     say(json.dumps(fig22))
@@ -1820,13 +2036,10 @@ def parallel_path(dev, card, walk_rec, idct_rec, idct_err):
     idct_rec["launches_parallel"] = idct_20 + idct_22
     idct_rec["launches"] += idct_20 + idct_22
     idct_rec["max_abs_err"] = max(idct_rec["max_abs_err"], err)
-    if walk_rec is not None:
-        walk_rec["launches_parallel"] = walk_21
-        walk_rec["launches"] += walk_21
     return idct_rec
 
 
-def tools_path(dev, card, walk_rec, idct_rec):
+def tools_path(dev, card, idct_rec):
     """Phases 23-24: their launches added to the kernels' records."""
     with tempfile.TemporaryDirectory(prefix="jmx_smoke_") as tmp:
         # ---- jmx_decode: the HEVC inter fixture ----
@@ -1844,14 +2057,12 @@ def tools_path(dev, card, walk_rec, idct_rec):
             t0 = time.perf_counter()
             n = jmx_decode.decode_file(INTER_FIXTURE, out)
             t_dec = time.perf_counter() - t0
-            walk_23 = HW.LAUNCHES
         finally:
             DeviceRecon.__call__ = call
         digests = fixture_digests(INTER_DIGESTS)
-        taken = sum(sum(y) + sum(c) for y, c in map(HTT.walk_steps, plans))
-        check(n == len(digests) and walk_23 == taken and taken > 0,
-              f"jmx_decode: {n} frames, {walk_23} walk launches, {taken} "
-              f"scan steps with a TU")
+        check(n == len(digests) == len(plans),
+              f"jmx_decode: {n} frames, {len(plans)} on the card")
+        scan_23 = hevc_scan_counts("phase 23", 2 * len(plans))
         raw = np.fromfile(out, np.uint8)
         with open(INTER_DIGESTS) as f:
             meta = json.load(f)
@@ -1867,8 +2078,7 @@ def tools_path(dev, card, walk_rec, idct_rec):
         say(f"phase 23 [{card}]: jmx_decode of the HEVC inter fixture on the "
             f"card: {n} frames {w}x{h} in {t_dec:.2f} s ({n / t_dec:.2f} fps "
             f"with the file writes), all {3 * n} planes match the libavcodec "
-            f"digests, hevc_walk launched {walk_23} times (once per scan "
-            f"step with a TU)")
+            f"digests, hevc_scan launched {scan_23} times (two a picture)")
 
         # ---- jmx_transcode --scale 2: 1080p -> 960x540, then resume ----
         fx = transcode_fixture()
@@ -1922,25 +2132,24 @@ def tools_path(dev, card, walk_rec, idct_rec):
         with open(path) as f:
             names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
         n_idct = sum("dequant_idct_kernel" in n for n in names)
-        n_walk = sum("hevc_walk_kernel" in n for n in names)
-        check(n_idct > 0 and n_walk > 0,
-              f"trace names dequant_idct {n_idct}, hevc_walk {n_walk} times")
+        n_scan = sum("hevc_scan_kernel" in n for n in names)
+        check(n_idct > 0 and n_scan > 0,
+              f"trace names dequant_idct {n_idct}, hevc_scan {n_scan} times")
         say(f"phase 24: device_trace wrote a Chrome trace "
             f"({os.path.getsize(path)} bytes, {len(names)} events) naming "
-            f"dequant_idct_kernel {n_idct} and hevc_walk_kernel {n_walk} "
+            f"dequant_idct_kernel {n_idct} and hevc_scan_kernel {n_scan} "
             f"times")
-    for rec, launches in ((walk_rec, walk_23), (idct_rec, idct_23)):
-        if rec is not None:
-            rec["launches_tools"] = launches
-            rec["launches"] += launches
+    if idct_rec is not None:
+        idct_rec["launches_tools"] = idct_23
+        idct_rec["launches"] += idct_23
     return {"slice": "jmx_decode and jmx_transcode on the card",
             "decode_frames": n, "decode_s": t_dec,
             "transcode_gops": recs, "transcode_sha256": sha,
-            "walk_launches": walk_23, "dequant_idct_launches": idct_23,
+            "scan_launches": scan_23, "dequant_idct_launches": idct_23,
             "card": card}
 
 
-def bench_path(dev, card, walk_rec, idct_rec):
+def bench_path(dev, card, idct_rec):
     """Phase 25: the bench's batched figures, their launches added to the
     kernels' records."""
     reset_counts()
@@ -1950,29 +2159,32 @@ def bench_path(dev, card, walk_rec, idct_rec):
     h264 = bench.bench_h264(h264_fixture_batch_stream(),
                             fixture_digests(H264_DIGESTS), dev, reps=1)
     dt = time.perf_counter() - t0
-    walk, idct = HW.LAUNCHES, ID.LAUNCHES
-    # bench_h264 decodes the batch three times (checked, end to end,
-    # device-only), each one launch of each scan kernel
+    idct = ID.LAUNCHES
+    # each bench decodes its batch three times (checked, end to end,
+    # device-only): two hevc_scan launches a HEVC decode, one launch of
+    # each H.264 scan kernel a H.264 decode
     scan_counts("phase 25", 3, 3)
-    check(hevc["launches"] == {"hevc_walk": 124, "dequant_idct": 0,
-                               "h264_intra": 0, "h264_deblock": 0},
+    scan = hevc_scan_counts("phase 25", 2 * 3)
+    check(hevc["launches"] == {"hevc_walk": 0, "hevc_scan": 2,
+                               "dequant_idct": 0, "h264_intra": 0,
+                               "h264_deblock": 0},
           f"bench_hevc launches {hevc['launches']}")
-    check(h264["launches"] == {"hevc_walk": 0, "dequant_idct": 2,
-                               "h264_intra": 1, "h264_deblock": 1},
+    check(h264["launches"] == {"hevc_walk": 0, "hevc_scan": 0,
+                               "dequant_idct": 2, "h264_intra": 1,
+                               "h264_deblock": 1},
           f"bench_h264 launches {h264['launches']}")
     say(f"phase 25 [{card}]: tools/bench.py, one repeat each: bench_hevc "
         f"{hevc['frames']} frames {hevc['fps']:.2f} fps end to end, "
-        f"{hevc['device_fps']:.2f} device-only, hevc_walk launched 124 "
-        f"times in its checked decode; bench_h264 {h264['frames']} frames "
+        f"{hevc['device_fps']:.2f} device-only, hevc_scan launched twice "
+        f"in its checked decode; bench_h264 {h264['frames']} frames "
         f"{h264['fps']:.3f} fps end to end, {h264['device_fps']:.3f} "
         f"device-only, dequant_idct launched twice and the scan kernels "
         f"once each; every plane equals the libavcodec digests; "
-        f"{dt:.1f} s; launches in all: hevc_walk {walk}, dequant_idct "
+        f"{dt:.1f} s; launches in all: hevc_scan {scan}, dequant_idct "
         f"{idct}")
-    for rec, n in ((walk_rec, walk), (idct_rec, idct)):
-        if rec is not None:
-            rec["launches_bench"] = n
-            rec["launches"] += n
+    if idct_rec is not None:
+        idct_rec["launches_bench"] = idct
+        idct_rec["launches"] += idct
     return {"slice": "tools/bench.py batched figures", "hevc": hevc,
             "h264": h264, "wall_s": dt, "card": card}
 
@@ -2364,12 +2576,14 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    walk_rec, idct_rec = None, None
+    walk_rec, scan_rec, idct_rec = None, None, None
     if only in (None, "hevc", "hevc_inter", "session", "hevc_host",
                 "parallel", "tools", "bench"):
         walk_err = check_walk_shapes(dev)
+        scan_err = check_scan_planes(dev)
+        torch.cuda.empty_cache()
     if only in (None, "hevc"):
-        walk_rec, fig = hevc_path(dev, card, walk_err)
+        walk_rec, scan_rec, fig = hevc_path(dev, card, walk_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
     if only in (None, "h264", "h264_inter", "session", "encode",
@@ -2380,7 +2594,8 @@ def main() -> int:
         say(json.dumps(fig))
         torch.cuda.empty_cache()
     if only in (None, "hevc_inter"):
-        walk_rec, fig = hevc_inter_path(dev, card, walk_rec, walk_err)
+        walk_rec, scan_rec, fig = hevc_inter_path(dev, card, walk_rec,
+                                                  scan_rec, walk_err)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
     if only in (None, "h264_inter"):
@@ -2388,21 +2603,21 @@ def main() -> int:
         say(json.dumps(fig))
         torch.cuda.empty_cache()
     if only in (None, "session"):
-        session_path(dev, card, walk_rec, idct_rec)
+        session_path(dev, card, idct_rec)
         torch.cuda.empty_cache()
     if only in (None, "hevc_host"):
-        hevc_host_path(dev, card, walk_rec)
+        hevc_host_path(dev, card)
         torch.cuda.empty_cache()
     if only in (None, "encode"):
         idct_rec = encode_path(dev, card, idct_rec, idct_err)
         torch.cuda.empty_cache()
     if only in (None, "parallel"):
-        idct_rec = parallel_path(dev, card, walk_rec, idct_rec, idct_err)
+        idct_rec = parallel_path(dev, card, idct_rec, idct_err)
     if only in (None, "tools"):
-        say(json.dumps(tools_path(dev, card, walk_rec, idct_rec)))
+        say(json.dumps(tools_path(dev, card, idct_rec)))
         torch.cuda.empty_cache()
     if only in (None, "bench"):
-        say(json.dumps(bench_path(dev, card, walk_rec, idct_rec)))
+        say(json.dumps(bench_path(dev, card, idct_rec)))
         torch.cuda.empty_cache()
     if only in (None, "quality"):
         say(json.dumps(quality_path(dev, card, idct_rec)))
@@ -2414,7 +2629,14 @@ def main() -> int:
     for r in scan_recs:
         r["launches"] = SCANS[r["name"]]
     say(f"smoke: H.264 scan kernel launches over the paths driven {SCANS}")
-    recs = [r for r in (walk_rec, idct_rec) if r is not None] + scan_recs
+    if scan_rec is not None:
+        scan_rec["launches"] = HEVC_SCAN["launches"]
+        scan_rec["launches_by_phase"] = HEVC_SCAN["by_phase"]
+        scan_rec["max_abs_err"] = max(scan_rec["max_abs_err"], scan_err)
+        say(f"smoke: hevc_scan launches over the paths driven "
+            f"{HEVC_SCAN}; hevc_walk none on any path")
+    recs = [r for r in (walk_rec, scan_rec, idct_rec)
+            if r is not None] + scan_recs
     for r in recs:
         r["launch_floor_ms"] = floor
     say(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the "

@@ -9,10 +9,12 @@ inter (P/B) path:
                   as float64 matrix products (every partial sum is an
                   integer below 2^27, so float64 is exact)
   2. intra scan - CTB-diagonal wavefront, lanes = CTB rows of every frame
-                  (and of Cb and Cr for chroma), one walk() per diagonal:
-                  the hand-written CUDA kernel on the card, the plain torch
-                  walk on the CPU (hevc_walk.py). An inter picture seeds the
-                  tiles with its base, and a diagonal with no TU is skipped.
+                  (and of Cb and Cr for chroma): on the card one launch of
+                  the hand-written CUDA kernel a scan (hevc_scan.py), on the
+                  CPU a torch loop over the diagonals, one walk() a diagonal
+                  (the plain torch walk of hevc_walk.py). An inter picture
+                  seeds the planes with its base; a CTB (on the card) or a
+                  diagonal (on the CPU) without a TU is not walked.
   3. deblock    - whole-plane vectorised V pass then H pass (8.7.2)
   4. SAO        - per-CTB parameters broadcast to pixels (8.7.3)
 
@@ -33,6 +35,7 @@ from ..utils.device import require_cuda
 from . import hevc_tables as HT
 from ._planes import cell_origins, edge_pad
 from ._tables import device_table as _t
+from .hevc_scan import scan_planes
 from .hevc_walk import walk
 
 _I32 = torch.int32
@@ -191,6 +194,45 @@ def _intra_scan(resid_t, zidx_t, tu_t, mode_t, valid_t, has_left_t,
         Cz = torch.where(vm, zw[:, :, C4 - 1], ZIDX_NONE)
         out.append(Yw)
     return torch.stack(out)
+
+
+def scan_torch(resid, zidx, tu, mode, *, C: int, skew: int, max_tu: int,
+               is_chroma: bool, strong: bool, walk_fn=walk, base=None,
+               has_tu=None):
+    """The scan in hevc_scan's plane layout on the torch route: the CTB rows
+    of the planes skewed into lanes (plane p on cell map p % G), _intra_scan
+    with walk_fn, its tiles unskewed. resid / base [P, H, W] int16, zidx /
+    tu / mode [G, H/4, W/4] int32, has_tu as _intra_scan's. Returns
+    [P, H, W] int32."""
+    P, H, W = resid.shape
+    G = zidx.shape[0]
+    ctb_h, ctb_w = H // C, W // C
+    cys, cxs, valid, has_left = (
+        _t(a, resid.device, torch.int64)
+        for a in HT.skew_geometry(ctb_h, ctb_w, skew))
+
+    def lanes(planes, n):
+        return _skew(_plane_to_ctb_tiles(planes, ctb_h, ctb_w, n), cys, cxs)
+
+    cells = lambda a: lanes(a, C // 4).repeat(1, P // G, 1, 1)
+    tiles = _intra_scan(
+        lanes(resid, C), cells(zidx), cells(tu), cells(mode),
+        valid.repeat(1, P), has_left.repeat(1, P), C, skew, max_tu,
+        is_chroma=is_chroma, strong=strong, groups=P, walk_fn=walk_fn,
+        base_t=None if base is None else lanes(base, C), has_tu=has_tu)
+    return _unskew_to_plane(tiles, cys, cxs, valid, ctb_h, ctb_w, C)
+
+
+def scan_kernel(device, walk_fn=walk) -> bool:
+    """Does decode_frames_hevc_scan run each scan as the CUDA kernel
+    (hevc_scan.scan_planes)? On a CUDA device with the default walk_fn;
+    CPU tensors, and any other walk_fn (walk_reference: the plain route of
+    the checks), take the torch scan with that walk. No other route: a
+    failed build or launch raises."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the HEVC scan runs on the CPU or a CUDA device, "
+                         f"not {device}")
+    return device.type == "cuda" and walk_fn is walk
 
 
 # ---------------------------------------------------------------------------
@@ -392,13 +434,16 @@ def decode_frames_hevc_batch(Hp: int, Wp: int, log2_ctb: int, strong: bool,
     axis [F, ...] (per-frame scalars are [F]) and lies on one device, in
     the compact dtypes of stack_plans. Frames are stacked on the
     wavefront's lane axis, so the sequential depth of the scan is shared
-    by the whole batch. walk_fn is the scan step's TU walk (hevc_walk.walk;
-    checks pass hevc_walk.walk_reference). Returns (Y, U, V) uint8
-    [F, height, width] (and half size for chroma) on the same device.
+    by the whole batch. walk_fn is the torch scan's TU walk: the default
+    (hevc_walk.walk) lets a decode on the card take the scan kernel
+    (scan_kernel); checks pass hevc_walk.walk_reference for the plain
+    route. Returns (Y, U, V) uint8 [F, height, width] (and half size for
+    chroma) on the same device.
 
     decode_frame_hevc_inter passes base, the inter base planes (Y, Cb, Cr)
     [F, Hp, Wp] (half size for chroma) int32 that seed the scans, and
-    has_tu, the (luma, chroma) steps of walk_steps.
+    has_tu, the (luma, chroma) steps of walk_steps that the torch scan
+    walks (the kernel decides CTB by CTB on the card).
 
     The decode is its two stages in turn: decode_frames_hevc_scan, then
     decode_frames_hevc_filters (parallel/framepp.py runs them on two
@@ -419,23 +464,21 @@ def decode_frames_hevc_scan(Hp: int, Wp: int, log2_ctb: int, strong: bool,
                             cb_qp_off, cr_qp_off, *, walk_fn=walk, base=None,
                             has_tu=None):
     """The scan stage of decode_frames_hevc_batch (its arguments of the
-    same names): residuals, the luma and chroma wavefront scans and the
-    unskew. Returns the int32 coded-size planes (Y, U, V) [F, Hp, Wp]
-    (half size for chroma), before the in-loop filters."""
+    same names): residuals, then the luma and chroma wavefront scans, one
+    hevc_scan.scan_planes launch each on the card (scan_kernel), the torch
+    scan with walk_fn elsewhere (has_tu: the steps it walks). Returns the
+    int32 coded-size planes (Y, U, V) [F, Hp, Wp] (half size for chroma),
+    before the in-loop filters."""
     (coeff_y, tu_y, mode_y, zidx_y, qp_y, coeff_cb, coeff_cr, tu_c, mode_c,
      zidx_c, cb_qp_off, cr_qp_off) = (
         a.to(_I32) for a in (
             coeff_y, tu_y, mode_y, zidx_y, qp_y, coeff_cb, coeff_cr, tu_c,
             mode_c, zidx_c, cb_qp_off, cr_qp_off))
-    dev = coeff_y.device
     nf = coeff_y.shape[0]
     C = 1 << log2_ctb
-    ctb_h, ctb_w = Hp // C, Wp // C
     skew = HT.skew_for(C)
-    cys, cxs, valid, has_left = (
-        _t(a, dev, torch.int64) for a in HT.skew_geometry(ctb_h, ctb_w, skew))
-    rep = lambda a, k: a.repeat(1, k)            # [steps, ctb_h] -> lanes
     i16 = lambda a: a.clamp(-32768, 32767).to(torch.int16)
+    stack = lambda a, b: i16(torch.cat([a, b]))
 
     # ---- residuals ----
     resid_y = _residual_plane(coeff_y, qp_y, tu_y, True, (2, 3, 4, 5))
@@ -444,38 +487,23 @@ def decode_frames_hevc_scan(Hp: int, Wp: int, log2_ctb: int, strong: bool,
     resid_cr = _residual_plane(coeff_cr, _chroma_qp(qp_y, cr_qp_off), tu_c,
                                False, (2, 3, 4))
 
-    def lanes(planes, n):
-        return _skew(_plane_to_ctb_tiles(planes, ctb_h, ctb_w, n), cys, cxs)
-
-    base_y, base_cb, base_cr = (None,) * 3 if base is None else base
-    has_y, has_c = (None, None) if has_tu is None else has_tu
-
-    # ---- luma scan: frames stacked on the lane axis ----
-    Yt = _intra_scan(i16(lanes(resid_y, C)), lanes(zidx_y, C // 4),
-                     lanes(tu_y, C // 4), lanes(mode_y, C // 4),
-                     rep(valid, nf), rep(has_left, nf), C, skew, 32,
-                     is_chroma=False, strong=strong, groups=nf,
-                     walk_fn=walk_fn,
-                     base_t=None if base is None else i16(lanes(base_y, C)),
-                     has_tu=has_y)
-    Y = _unskew_to_plane(Yt, cys, cxs, valid, ctb_h, ctb_w, C)
-
-    # ---- chroma scan: [Cb of every frame, Cr of every frame] ----
-    Cc = C // 2
-    cat2 = lambda a: torch.cat([a, a], dim=1)
-    rc = torch.cat([lanes(resid_cb, Cc), lanes(resid_cr, Cc)], dim=1)
-    Ct = _intra_scan(i16(rc), cat2(lanes(zidx_c, Cc // 4)),
-                     cat2(lanes(tu_c, Cc // 4)), cat2(lanes(mode_c, Cc // 4)),
-                     rep(valid, 2 * nf), rep(has_left, 2 * nf), Cc, skew, 16,
-                     is_chroma=True, strong=False, groups=2 * nf,
-                     walk_fn=walk_fn,
-                     base_t=None if base is None else i16(torch.cat(
-                         [lanes(base_cb, Cc), lanes(base_cr, Cc)], dim=1)),
-                     has_tu=has_c)
-    half = nf * ctb_h
-    U = _unskew_to_plane(Ct[:, :half], cys, cxs, valid, ctb_h, ctb_w, Cc)
-    V = _unskew_to_plane(Ct[:, half:], cys, cxs, valid, ctb_h, ctb_w, Cc)
-    return Y, U, V
+    # ---- luma: frames stacked on the lanes; chroma: [Cb of every frame,
+    # Cr of every frame] on one map a frame ----
+    luma = ((i16(resid_y), zidx_y, tu_y, mode_y),
+            dict(C=C, skew=skew, max_tu=32, is_chroma=False, strong=strong,
+                 base=None if base is None else i16(base[0])))
+    chroma = ((stack(resid_cb, resid_cr), zidx_c, tu_c, mode_c),
+              dict(C=C // 2, skew=skew, max_tu=16, is_chroma=True,
+                   strong=False,
+                   base=None if base is None else stack(*base[1:])))
+    if scan_kernel(coeff_y.device, walk_fn):
+        Y, UV = (scan_planes(*(a.contiguous() for a in args), **kw)
+                 for args, kw in (luma, chroma))
+    else:
+        has_y, has_c = (None, None) if has_tu is None else has_tu
+        Y, UV = (scan_torch(*args, **kw, walk_fn=walk_fn, has_tu=has)
+                 for (args, kw), has in ((luma, has_y), (chroma, has_c)))
+    return Y, UV[:nf], UV[nf:]
 
 
 def decode_frames_hevc_filters(log2_ctb: int, deblock_on: bool, pw: int,
@@ -735,7 +763,8 @@ def decode_frame_hevc_inter(Hp: int, Wp: int, log2_ctb: int, strong: bool,
     frame axis, its weighted-prediction denominators, and the references'
     phase pyramids stacked in slot order (refs_y [R, 16, ...], refs_cb and
     refs_cr [R, 8, ...], from prep_hevc_ref). has_tu: walk_steps(plan), or
-    None to walk every step. Returns (Y, U, V) uint8 [height, width] (half
+    None to walk every step (the torch scan's; the kernel's route reads
+    no has_tu). Returns (Y, U, V) uint8 [height, width] (half
     size for chroma) on the tensors' device."""
     (coeff_y, qp_y, coeff_cb, coeff_cr, cb_qp_off, cr_qp_off, inter4, mv,
      ref_slot, pred_fl, tu_inter_y, tu_inter_c, wp_w) = (
@@ -791,7 +820,8 @@ def decode_plan_inter(plan, refs, device=None, coded: bool = False, *,
     `device` (None: the card) -> (Y, U, V) uint8 there (coded size when
     coded=True). A picture without references (an I picture, zeroed
     motion) passes [] and is predicted from a zero reference. walk_fn as
-    in decode_frames_hevc_batch."""
+    in decode_frames_hevc_batch; the torch scan skips the steps without a
+    TU (walk_steps, read from the plan on the host)."""
     _check_plans([plan])
     args = stack_plans([plan], device)
     dev = args[9].device
@@ -809,5 +839,6 @@ def decode_plan_inter(plan, refs, device=None, coded: bool = False, *,
     h, w = (plan.ph, plan.pw) if coded else (plan.height, plan.width)
     return decode_frame_hevc_inter(
         *args[:7], w, h, *args[9:], *inter, int(plan.luma_log2wd),
-        int(plan.chroma_log2wd), *stacks, has_tu=walk_steps(plan),
+        int(plan.chroma_log2wd), *stacks,
+        has_tu=None if scan_kernel(dev, walk_fn) else walk_steps(plan),
         walk_fn=walk_fn)

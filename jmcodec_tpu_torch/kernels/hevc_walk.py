@@ -1,5 +1,8 @@
 """The HEVC TU-tree walk of one wavefront scan step: the CUDA kernel
-(csrc/hevc_walk.cu) and its plain torch version.
+(csrc/hevc_walk.cu) and its plain torch version. The torch scan
+(hevc_tiles._intra_scan) calls it once a step; a decode on the card runs
+the scan kernel instead (hevc_scan.py), which walks each CTB with this
+kernel's device code (csrc/hevc_walk.cuh).
 
 walk(F, Z, resid, tu, mode) -> F evaluates, for every lane (one CTB of one
 frame or chroma plane), every z-order TU candidate (n, x0, y0) of the CTB

@@ -75,6 +75,7 @@ from jmcodec_tpu_torch.api.session import (Codec, DecoderSession,
                                            EncoderParams, EncoderSession,
                                            PixFmt)
 from jmcodec_tpu_torch.kernels import h264_scan as HS
+from jmcodec_tpu_torch.kernels import hevc_scan as HSC
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
 from jmcodec_tpu_torch.kernels import idct as ID
 from jmcodec_tpu_torch.kernels.hevc_tiles import (decode_frames_hevc_batch,
@@ -111,7 +112,8 @@ def _sync(dev):
 
 
 def _launches() -> dict:
-    return {"hevc_walk": HW.LAUNCHES, "dequant_idct": ID.LAUNCHES,
+    return {"hevc_walk": HW.LAUNCHES, "hevc_scan": HSC.LAUNCHES,
+            "dequant_idct": ID.LAUNCHES,
             "h264_intra": HS.INTRA_LAUNCHES,
             "h264_deblock": HS.DEBLOCK_LAUNCHES}
 

@@ -522,6 +522,99 @@ def synth_state_inter(C: int, max_tu: int, B: int, seed: int = 0,
     return F, Z, resid, tu, mode
 
 
+def synth_scan_planes(C: int, max_tu: int, planes: int, groups: int,
+                      ctb_h: int, ctb_w: int, seed: int = 0,
+                      inter: bool = False, partial: bool = False):
+    """Seeded inputs of the HEVC intra scan in plane layout (hevc_scan.
+    scan_planes and scan_reference) as numpy arrays: resid [planes, H, W]
+    int16, zidx / tu / mode [groups, H/4, W/4] int32 (plane p on map
+    p % groups) and base [planes, H, W] int16 with inter, else None.
+    synth_state_hard's kinds laid over whole planes: CTB (cy, cx) of map g
+    is of kind HARD_KINDS[(cx + cy * ctb_w + g) % 6] (all 4x4, one TU of
+    the largest size, no TU, a random quadtree, the same with residuals
+    (and base) at the int16 extremes or in between, the same with no
+    neighbour available: its cells numbered below those of every CTB
+    before it); the first quadtree CTB holds a TU of every size below the
+    largest. A map numbers its CTBs in raster order, each one's cells
+    in z-scan order with a random gap between CTBs, as a picture's decode
+    order does. With inter, every leaf of the quadtree is an intra TU or,
+    with probability 1/2, an inter cell (TU 0), each leaf numbered in
+    z-scan order with a random gap (plan.record_inter_cu_done), and the
+    kind "no TU" makes a CTB all inter. partial: the right half of the
+    last CTB column lies outside the picture (ZIDX_NONE, no TU), as when
+    the picture's width is not a multiple of the CTB's."""
+    rng = np.random.default_rng(seed)
+    C4, T = C // 4, min(C, max_tu)
+    T4 = T // 4
+    zidx = np.full((groups, ctb_h * C4, ctb_w * C4), ZIDX_NONE, np.int32)
+    tu = np.zeros(zidx.shape, np.int32)
+    mode = rng.integers(0, 35, zidx.shape).astype(np.int32)
+    resid = rng.integers(-20, 21, (planes, ctb_h * C, ctb_w * C)).astype(
+        np.int16)
+    base = (rng.integers(0, 256, resid.shape).astype(np.int16) if inter
+            else None)
+    extremes = np.array([-32768, -300, 0, 300, 32767], np.int16)
+    bits = lambda v: sum(((v >> k) & 1) << (2 * k) for k in range(4))
+    cs = np.arange(C4)
+    zscan = bits(cs)[None, :] | (bits(cs)[:, None] << 1)
+
+    def leaves(x4, y4, n4, out, ladder=False):
+        # ladder: split down to 4x4 through the first quadrant, so that a
+        # TU of every size below the block's is a leaf
+        if n4 == 1 or (not ladder and rng.random() < 0.4):
+            out.append((x4, y4, n4))
+            return out
+        h = n4 // 2
+        for j in range(4):
+            leaves(x4 + (j & 1) * h, y4 + (j >> 1) * h, h, out,
+                   ladder and j == 0)
+        return out
+
+    for g in range(groups):
+        ctr, low = 0, -(1 << 24)
+        for cy in range(ctb_h):
+            for cx in range(ctb_w):
+                kind = (cx + cy * ctb_w + g) % 6
+                t = np.zeros((C4, C4), np.int32)
+                z = zscan + ctr
+                if kind >= 3 or (inter and kind != 2):
+                    ls = [lf for y0 in range(0, C4, T4)
+                          for x0 in range(0, C4, T4)
+                          for lf in leaves(x0, y0, T4, [],
+                                           kind == 3 and x0 == y0 == 0)]
+                    for x4, y4, n4 in ls:
+                        if not inter or rng.random() < 0.5:
+                            t[y4, x4] = (4 * n4).bit_length() - 1
+                        if inter:
+                            ctr += int(rng.integers(1, 4))
+                            z[y4:y4 + n4, x4:x4 + n4] = ctr
+                elif kind == 0:
+                    t[:] = 2
+                elif kind == 1:
+                    t[0, 0] = T.bit_length() - 1
+                if kind == 5:
+                    z = zscan + low
+                    low += C4 * C4
+                ctr = max(ctr, int(z.max()) + 1) + int(rng.integers(0, 9))
+                if kind == 4:
+                    ys = slice(cy * C, (cy + 1) * C)
+                    xs = slice(cx * C, (cx + 1) * C)
+                    for p in range(g, planes, groups):
+                        resid[p, ys, xs] = rng.choice(extremes, (C, C))
+                        if inter:
+                            base[p, ys, xs] = rng.choice(extremes, (C, C))
+                if partial and cx == ctb_w - 1:
+                    h4 = C4 // 2
+                    for y4, x4 in zip(*np.nonzero(t)):
+                        if x4 + (1 << int(t[y4, x4])) // 4 > h4:
+                            t[y4, x4] = 0
+                    z[:, h4:] = ZIDX_NONE
+                sl = (g, slice(cy * C4, (cy + 1) * C4),
+                      slice(cx * C4, (cx + 1) * C4))
+                zidx[sl], tu[sl] = z, t
+    return resid, zidx, tu, mode, base
+
+
 def _scan_geometry(mbh: int, mbw: int):
     """(n_steps, mxs, valid) of the H.264 scans' skew (recon_tiles'
     _skew_geometry): lane k of diagonal d is macroblock (d - 2k, k)."""

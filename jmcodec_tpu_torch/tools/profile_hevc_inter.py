@@ -7,7 +7,7 @@ scan over the inter base, filters) in decode order. First once under
 torch.profiler as it runs: the card, the device's busy time, the kernel
 launches in all and per picture, and the kernels ranked by device time.
 Then with a synchronise around each stage (plan upload, pyramid prep,
-luma and chroma MC, residuals, the two scans, deblocking, SAO): the
+luma and chroma MC, residuals, the two scan kernels, deblocking, SAO): the
 unprofiled wall of each stage summed over the stream, and under the
 profiler each stage's launches and device busy time. A stage whose busy
 time is far below its wall waits on the host's issue of launches. The
@@ -34,7 +34,7 @@ from jmcodec_tpu_torch.tools.profiling import profile_decode
 from jmcodec_tpu_torch.utils.device import require_cuda
 
 STAGES = ("stack_plans", "prep_hevc_ref", "_mc_hevc_luma", "_mc_hevc_chroma",
-          "_residual_plane", "_intra_scan", "_deblock", "_sao_plane")
+          "_residual_plane", "scan_planes", "_deblock", "_sao_plane")
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,8 @@
 """On an NVIDIA GPU: the hevc_walk CUDA kernel equals walk_reference bit
 for bit at the 1080p slice's shapes, on the usual and the hard synthetic
 states, for one lane and for odd lane counts, and the port's decode on the
-card equals the CPU decode. Marked `cuda`; skips without a card. Imports no jax,
+card (through the scan kernel, whose CTBs the walk's device code walks)
+equals the CPU decode. Marked `cuda`; skips without a card. Imports no jax,
 so it runs where jax is absent:
 
     JMX_TEST_TPU=1 python -m pytest tests/test_torch_hevc_cuda.py -m cuda
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from jmcodec_tpu_torch.api.hevc_intra import parse_hevc_intra_plans
+from jmcodec_tpu_torch.kernels import hevc_scan as HSC
 from jmcodec_tpu_torch.kernels import hevc_tiles as PT
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
 from jmcodec_tpu_torch.tools.fixtures import synth_state, synth_state_hard
@@ -64,9 +66,10 @@ def test_decode_on_card_matches_cpu(dev, name):
     plans = parse_hevc_intra_plans(open(os.path.join(DATA, name),
                                         "rb").read())
     want = PT.decode_plans_batch(plans, "cpu")
-    before = HW.LAUNCHES
+    before = (HSC.LAUNCHES, HW.LAUNCHES)
     got = PT.decode_plans_batch(plans, dev)
     torch.cuda.synchronize()
-    assert HW.LAUNCHES > before
+    # the walk runs inside the scan kernel: one launch a scan
+    assert (HSC.LAUNCHES, HW.LAUNCHES) == (before[0] + 2, before[1])
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)

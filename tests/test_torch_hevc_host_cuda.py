@@ -19,7 +19,7 @@ import torch
 from jmcodec_tpu_torch.api import hevc_inter
 from jmcodec_tpu_torch.api.hevc_inter import decode_hevc
 from jmcodec_tpu_torch.api.session import Codec, DecoderSession
-from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
+from jmcodec_tpu_torch.kernels import hevc_scan as HSC
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
 from jmcodec_tpu_torch.tools.fixtures import (HEVC_HOST_FIXTURES,
                                               session_fixture)
@@ -61,8 +61,8 @@ def _host(fr):
 
 @pytest.mark.parametrize("name", list(HEVC_HOST_FIXTURES))
 def test_host_route_fixture_on_the_card(monkeypatch, dev, name):
-    """The walk is launched once per scan step with a TU of the plans the
-    card took (none for a P picture without an intra TU)."""
+    """The scan kernel is launched twice for each plan the card took (luma,
+    chroma; the walk runs inside it), hevc_walk never."""
     stream, digests = session_fixture(name, ".h265")
     plans = []
     call = hevc_inter.DeviceRecon.__call__
@@ -72,17 +72,16 @@ def test_host_route_fixture_on_the_card(monkeypatch, dev, name):
         return call(self, plan, ref_pixels)
 
     monkeypatch.setattr(hevc_inter.DeviceRecon, "__call__", recording)
-    HW.LAUNCHES = 0
+    HW.LAUNCHES = HSC.LAUNCHES = 0
     frames, n = _session(stream)
     torch.cuda.synchronize()
-    launches = HW.LAUNCHES
+    launches = (HSC.LAUNCHES, HW.LAUNCHES)
     n_dev, n_host = HEVC_HOST_FIXTURES[name]
     assert n == {"frames_device": n_dev, "corrupt_chunks": 0,
                  "unsupported_pictures": 0}
     assert len(frames) == len(digests) == n_dev + n_host
     assert len(plans) == n_dev
-    assert launches == sum(sum(y) + sum(c)
-                           for y, c in map(HTT.walk_steps, plans))
+    assert launches == (2 * len(plans), 0)
     on_card = [isinstance(fr[0], torch.Tensor) for fr in frames]
     assert all(p.device == dev for fr, c in zip(frames, on_card) if c
                for p in fr)

@@ -1,5 +1,6 @@
 """On an NVIDIA GPU: the port's HEVC inter decode (decode_hevc on the
-card, the CUDA TU walk over the inter base) equals the libavcodec digests
+card, the CUDA scan kernel over the inter base, two launches a picture)
+equals the libavcodec digests
 of the committed small inter streams and of the 16-picture 1080p inter
 fixture, and the hevc_walk kernel equals walk_reference bit for bit on
 inter-seeded walk states (random base, inter cells numbered among the
@@ -17,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from jmcodec_tpu_torch.api import hevc_inter
 from jmcodec_tpu_torch.api.hevc_inter import decode_hevc
+from jmcodec_tpu_torch.kernels import hevc_scan as HSC
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
 from jmcodec_tpu_torch.tools.fixtures import (INTER_DIGESTS, fixture_digests,
                                               inter_fixture_stream,
@@ -48,13 +51,25 @@ def _assert_digests(frames, digests, dev):
 
 
 @pytest.mark.parametrize("name", STREAMS)
-def test_stream_on_card_matches_digests(dev, name):
+def test_stream_on_card_matches_digests(monkeypatch, dev, name):
     s = open(os.path.join(DATA, name + ".h265"), "rb").read()
     meta = json.load(open(os.path.join(DATA, name + ".sha256.json")))
-    before = HW.LAUNCHES
+    on_card = []
+    call = hevc_inter.DeviceRecon.__call__
+
+    def recording(self, plan, ref_pixels):
+        on_card.append(plan.poc)
+        return call(self, plan, ref_pixels)
+
+    monkeypatch.setattr(hevc_inter.DeviceRecon, "__call__", recording)
+    before = (HSC.LAUNCHES, HW.LAUNCHES)
     frames = decode_hevc(s, dev)
     torch.cuda.synchronize()
-    assert HW.LAUNCHES > before
+    # two scan kernel launches a picture on the card (luma, chroma), no
+    # walk launch
+    assert on_card
+    assert (HSC.LAUNCHES, HW.LAUNCHES) == (before[0] + 2 * len(on_card),
+                                           before[1])
     _assert_digests(frames, meta["frames"], dev)
 
 

@@ -54,7 +54,8 @@ def test_port_has_its_host_modules():
                  "codec/h264/refenc.py", "codec/hevc/refenc.py",
                  "codec/hevc/cabac_enc.py", "pipeline/ratecontrol.py",
                  "pipeline/gop.py", "tools/oracle.py", "tools/jmx_quality.py",
-                 "tools/bench.py", "kernels/h264_scan.py"):
+                 "tools/bench.py", "kernels/h264_scan.py",
+                 "kernels/hevc_scan.py"):
         assert os.path.join("jmcodec_tpu_torch", want) in have, want
 
 

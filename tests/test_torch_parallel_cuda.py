@@ -22,7 +22,7 @@ import torch
 from jmcodec_tpu_torch import entry as E
 from jmcodec_tpu_torch.api.hevc_intra import parse_hevc_intra_plans
 from jmcodec_tpu_torch.codec.h264.fastdec import FastH264Parser
-from jmcodec_tpu_torch.kernels import hevc_tables as HT
+from jmcodec_tpu_torch.kernels import hevc_scan as HSC
 from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
 from jmcodec_tpu_torch.kernels import idct as ID
@@ -83,13 +83,11 @@ def test_transcode_real_step_world1(dev):
 def test_decode_plans_pipelined_default_devices(dev):
     with open(os.path.join(DATA, "hevc_ctu16_64x64.h265"), "rb") as f:
         plans = parse_hevc_intra_plans(f.read())
-    p0 = plans[0]
-    C = 1 << p0.log2_ctb
-    steps = p0.Wp // C + HT.skew_for(C) * (p0.Hp // C - 1)
-    HW.LAUNCHES = 0
+    HW.LAUNCHES = HSC.LAUNCHES = 0
     outs = FP.decode_plans_pipelined(plans, batch=2)
     torch.cuda.synchronize()
-    assert HW.LAUNCHES == 2 * steps * 2
+    # two scan launches a batch of two pictures, the walk inside them
+    assert (HSC.LAUNCHES, HW.LAUNCHES) == (2 * 2, 0)
     assert all(o[0].device.type == "cuda" for o in outs)
     want = HTT.decode_plans_batch(plans, "cpu")
     for k in range(3):
@@ -141,4 +139,4 @@ def test_device_trace_names_the_kernels(dev, tmp_path):
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     assert any("dequant_idct_kernel" in n for n in names)
-    assert any("hevc_walk_kernel" in n for n in names)
+    assert any("hevc_scan_kernel" in n for n in names)
