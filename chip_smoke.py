@@ -44,10 +44,15 @@ non-zero:
      launch (a device that finishes long after it is the bound, one that
      finishes just after it waited on the host), the decode's kernel
      launches and device busy time (torch.profiler); each hevc_scan
-     launch's device time (the median of 3 profiler runs) against its
-     bound, the time of one step of its CTB chain, the plain scan's wall
-     (phase 4's) and the walks alone of the torch scan (the steps x the
-     walk kernel's step time); then, on the torch scan's route (one
+     launch (against the plain scan, bit for bit): its device time (the
+     median of 3 profiler runs) against its bound; its chain in
+     dependency levels, with the same chain walked in z-order and the
+     plane's TU critical path in TUs (tools/hevc_scan_chain.py on the
+     launch's cell maps), the time of one level and of one CTB of the
+     chain; its lanes against the CTAs the card holds at once; the plain
+     scan's wall (phase 4's) and the walks alone of the torch scan (the
+     steps x the walk kernel's step time);
+     then, on the torch scan's route (one
      hevc_walk launch a step), the walk kernel against walk_reference at
      the middle scan step, with that step's active TUs per lane and the
      kernel's cycles per active TU of its longest lane, and the kernel's
@@ -72,7 +77,8 @@ non-zero:
      with its pyramid cache), with the time at which the host had issued
      the last launch; kernel launches per picture and the device's busy
      time (one replay under torch.profiler); the first P picture's two
-     hevc_scan launches against scan_reference (bit for bit, device ms,
+     hevc_scan launches against scan_reference, as phase 5 times the
+     intra batch's (bit for bit, device ms, chain, lanes,
      plain wall, bound); and the walk kernel against walk_reference at the
      middle scan step of that picture on the torch scan's route
  11. decode the H.264 P fixture on the card (decode_h264): the
@@ -212,14 +218,16 @@ non-zero:
      driven
 
  29. (run with phase 3, before the HEVC paths) the hevc_scan kernel
-     against scan_reference, bit for bit, on the seeded planes of
-     tools/fixtures.synth_scan_planes (synth_state_hard's kinds laid over
-     whole planes: all-4x4 CTBs, CTBs without a TU, int16-extreme
+     against scan_reference, bit for bit, on the seeded planes
+     of tools/fixtures.synth_scan_planes (synth_state_hard's kinds laid
+     over whole planes: all-4x4 CTBs, CTBs without a TU, int16-extreme
      residuals and bases, z-scan Z, isolated CTBs, a partial right
      column) at CTU 64, 32 and 16, luma and Cb + Cr, with and without an
-     inter base, then on more lanes than the card holds CTAs of the
-     kernel at once. Every HEVC path checks that each scan was one
-     hevc_scan launch and that hevc_walk was not launched; hevc_scan's
+     inter base; on all-4x4 planes, 32x32 TUs under the strong filter and
+     random TU maps and Z (overlapping TUs); then on more lanes than the
+     card holds CTAs of the kernel at once. Every HEVC path checks that
+     each scan was one hevc_scan launch and that hevc_walk was not
+     launched; hevc_scan's
      record counts the launches of every path driven, hevc_walk's record
      (its times from phases 5 and 10, on the torch scan's route) none
 
@@ -309,7 +317,7 @@ from jmcodec_tpu_torch.parallel.spatial import (
 from jmcodec_tpu_torch.parallel.transcode import (_downscale2x_with_halo,
                                                   _encode_forward)
 from jmcodec_tpu_torch.tools import bench, jmx_decode, jmx_quality, oracle
-from jmcodec_tpu_torch.tools import jmx_transcode
+from jmcodec_tpu_torch.tools import hevc_scan_chain, jmx_transcode
 from jmcodec_tpu_torch.tools.fixtures import (BATCH, CORPUS_FIXTURE,
                                               CUQP_DIGESTS,
                                               ENCODE_SESSIONS, FIXTURE,
@@ -628,6 +636,77 @@ def scan_bound(args, kw):
     return bound_ms(nb, ops)
 
 
+def scan_chains(args, kw):
+    """The chains of one hevc_scan launch in TUs
+    (tools/hevc_scan_chain.plane_chains), the longest over its distinct
+    cell maps: "zorder" (each CTB's TUs one after another), "levels" (each
+    CTB's TUs by dependency level: the kernel's chain) and "plane" (the
+    whole plane's TU critical path)."""
+    tu, zidx = args[2].cpu().numpy(), args[1].cpu().numpy()
+    out, seen = {"zorder": 0, "levels": 0, "plane": 0}, set()
+    for g in range(tu.shape[0]):
+        digest = hashlib.sha1(tu[g].tobytes() + zidx[g].tobytes()).digest()
+        if digest in seen:
+            continue
+        seen.add(digest)
+        r = hevc_scan_chain.plane_chains(tu[g], zidx[g], kw["C"],
+                                         kw["max_tu"], kw["skew"])
+        out = {k: max(v, r[k]) for k, v in out.items()}
+    return out
+
+
+def scan_figures(args, kw, want, what, plain_ms):
+    """One hevc_scan launch of a path against the plain scan's planes
+    (want), bit for bit, and its device ms (the median of REPS traced
+    launches); the launch's chain (scan_chains), lanes and resident CTAs;
+    its bound."""
+    f = {"plain_ms": plain_ms, "bound": scan_bound(args, kw)}
+    got, f["ms"], f["runs_traced"] = scan_ms(
+        lambda: HSC.scan_planes(*args, **kw), "hevc_scan_kernel")
+    f["err"] = max_abs(got, want)
+    check(f["err"] == 0, f"{what}: hevc_scan != the plain scan")
+    P, G = args[0].shape[0], args[1].shape[0]
+    ctb_h = args[0].shape[1] // kw["C"]
+    f["lanes"] = HSC.lanes(P, G, ctb_h)
+    f["ctas"], f["smem"], f["threads"] = HSC.resident_ctas(
+        C=kw["C"], skew=kw["skew"], max_tu=kw["max_tu"],
+        base=kw.get("base") is not None, planes_per_map=P // G)
+    f["chain"] = scan_chains(args, kw)
+    return f
+
+
+def say_scan(head, f, ctbs, extra):
+    """A line of scan_figures' figures; ctbs: the scan's chain in CTBs."""
+    c = f["chain"]
+    waits = (f"; {f['lanes'] - f['ctas']} lanes wait for a CTA"
+             if f["lanes"] > f["ctas"] else "")
+    say(f"{head}: {f['lanes']} lanes against {f['ctas']} resident CTAs of "
+        f"{f['threads']} threads and {f['smem']} B shared memory{waits}; "
+        f"kernel {f['ms']:.4f} ms a scan (median of {f['runs_traced']} "
+        f"traced runs); its chain "
+        f"{c['levels']} levels of {ctbs} CTBs ({c['zorder']} TUs walked "
+        f"in z-order, {c['plane']} the plane's TU critical path): "
+        f"{f['ms'] / max(c['levels'], 1) * 1e3:.3f} us a level, "
+        f"{f['ms'] / ctbs * 1e3:.2f} us a CTB{extra}; plain scan "
+        f"{f['plain_ms']:.1f} ms (its wall); bound {f['bound'][0]:.5f} ms "
+        f"({f['bound'][2]})")
+
+
+def scan_keys(f, key, ctbs):
+    """scan_figures' figures as the hevc_scan record's keys."""
+    c = f["chain"]
+    return {f"ms_{key}": f["ms"], f"plain_ms_{key}": f["plain_ms"],
+            f"bound_ms_{key}": f["bound"][0],
+            f"chain_levels_{key}": c["levels"],
+            f"chain_zorder_tus_{key}": c["zorder"],
+            f"chain_plane_tus_{key}": c["plane"],
+            f"level_us_{key}": f["ms"] / max(c["levels"], 1) * 1e3,
+            f"step_ms_{key}": f["ms"] / ctbs,
+            f"runs_traced_{key}": f["runs_traced"],
+            f"lanes_{key}": f["lanes"], f"resident_ctas_{key}": f["ctas"],
+            f"smem_bytes_{key}": f["smem"]}
+
+
 # phase 29's synthetic scans: (luma CTB size, plane, frames, ctb_h, ctb_w,
 # inter base)
 SCAN_CASES = [(64, "luma", 2, 3, 5, False), (64, "chroma", 2, 3, 5, False),
@@ -639,41 +718,68 @@ SCAN_CASES = [(64, "luma", 2, 3, 5, False), (64, "chroma", 2, 3, 5, False),
 def check_scan_planes(dev):
     """Phase 29: hevc_scan == scan_reference, bit for bit, on the seeded
     planes of synth_scan_planes (every CTB kind of synth_state_hard, a
-    partial right column) at CTU 64, 32 and 16, luma and Cb + Cr, with and
-    without an inter base; then on more lanes than the card holds CTAs
+    partial right column) at CTU 64, 32 and 16, luma and Cb + Cr, with
+    and without an inter base; on planes of all-4x4 CTBs (the widest
+    levels), of 32x32 luma TUs on nearly flat references (the strong
+    filter) and of random TU maps and Z (overlapping TUs, cells read before
+    a later TU writes them); then on more lanes than the card holds CTAs
     of the kernel at once. Returns the largest error."""
     err, n = 0, 0
 
-    def one(ctu, plane, frames, ctb_h, ctb_w, inter, seed):
+    def one(ctu, plane, frames, ctb_h, ctb_w, inter, seed, maps=None):
         C, max_tu = (ctu, 32) if plane == "luma" else (ctu // 2, 16)
         chroma = plane == "chroma"
-        arrays = synth_scan_planes(C, max_tu, frames * (1 + chroma),
-                                   frames, ctb_h, ctb_w, seed=seed,
-                                   inter=inter, partial=True)
+        arrays = list(synth_scan_planes(C, max_tu, frames * (1 + chroma),
+                                        frames, ctb_h, ctb_w, seed=seed,
+                                        inter=inter, partial=True))
+        if maps is not None:
+            maps(arrays, np.random.default_rng(seed), min(C, max_tu))
         t = [None if a is None else torch.from_numpy(a).to(dev)
              for a in arrays]
         kw = dict(C=C, skew=HT.skew_for(ctu), max_tu=max_tu,
                   is_chroma=chroma, strong=not chroma, base=t[4])
-        got = HSC.scan_planes(*t[:4], **kw)
         want = HSC.scan_reference(*t[:4], **kw)
+        got = HSC.scan_planes(*t[:4], **kw)
         torch.cuda.synchronize()
         e = max_abs(got, want)
         check(e == 0, f"phase 29 CTU {ctu} {plane} x{frames} "
-                      f"{'inter' if inter else 'intra'}: hevc_scan != "
-                      f"scan_reference")
-        return e, t[0].shape[0] * ctb_h
+                      f"{'inter' if inter else 'intra'}"
+                      f"{'' if maps is None else ' ' + maps.__name__}"
+                      f": hevc_scan != scan_reference")
+        return e, HSC.lanes(t[0].shape[0], t[1].shape[0], ctb_h)
+
+    def all_4x4(arrays, rng, T):
+        arrays[2][:] = 2
+
+    def strong_32x32(arrays, rng, T):
+        arrays[2][:] = 0
+        arrays[2][:, ::8, ::8] = 5
+        arrays[0][:] = rng.integers(-1, 2, arrays[0].shape)
+
+    def random_maps(arrays, rng, T):
+        arrays[2][:] = rng.choice(np.array([0, *range(2, T.bit_length())],
+                                           np.int32), arrays[2].shape)
+        arrays[1][:] = rng.integers(0, 1 << 12, arrays[1].shape)
 
     for i, case in enumerate(SCAN_CASES):
         e, _ = one(*case, seed=20 + i)
         err, n = max(err, e), n + 1
-    ctas, _ = HSC.resident_ctas(C=8, skew=HT.skew_for(16), max_tu=16)
-    e, lanes = one(16, "chroma", ctas // 6 + 1, 3, 2, False, seed=40)
+    for i, (ctu, plane, maps) in enumerate(
+            [(64, "luma", all_4x4), (32, "chroma", all_4x4),
+             (64, "luma", strong_32x32), (64, "luma", random_maps),
+             (32, "chroma", random_maps)]):
+        e, _ = one(ctu, plane, 2, 3, 4, False, seed=30 + i, maps=maps)
+        err, n = max(err, e), n + 1
+    ctas = HSC.resident_ctas(C=8, skew=HT.skew_for(16), max_tu=16,
+                             planes_per_map=2)[0]
+    e, lanes = one(16, "chroma", ctas // 3 + 1, 3, 2, False, seed=40)
     check(lanes > ctas, f"phase 29: {lanes} lanes, {ctas} resident CTAs")
     err = max(err, e)
     say(f"phase 29: hevc_scan == scan_reference on {n} seeded scans (CTU "
-        f"64, 32 and 16; luma and Cb + Cr; 1-3 frames; with and without "
-        f"an inter base; all-4x4, no-TU, extreme-residual and isolated "
-        f"CTBs, a partial right column) and on {lanes} lanes of CTU-16 "
+        f"64, 32 and 16; luma and Cb + Cr; 1-3 frames; with and without an "
+        f"inter base; all-4x4, no-TU, extreme-residual and isolated CTBs, a "
+        f"partial right column; all-4x4 planes, 32x32 TUs under the strong "
+        f"filter, random TU maps and Z) and on {lanes} lanes of CTU-16 "
         f"chroma, more than the {ctas} CTAs that fit the card at once; "
         f"max_abs_err {err}")
     return err
@@ -738,15 +844,12 @@ def hevc_path(dev, card, err):
     t_dev, t_issued = sync_time(device_only, REPS)
     n_kernels, busy = kernel_busy(device_only)
 
-    # each scan kernel on the path's inputs: device ms of its one launch
+    # each scan kernel on the path's inputs: device ms of
+    # its one launch; its chain; its lanes against the resident CTAs
     scan_t = {}
-    for (a, kw), (_, p_ms), key in zip(scans, plain, ("luma", "chroma")):
-        _, ms, traced = scan_ms(lambda: HSC.scan_planes(*a, **kw),
-                                "hevc_scan_kernel")
-        ctas, smem = HSC.resident_ctas(C=kw["C"], skew=kw["skew"],
-                                       max_tu=kw["max_tu"])
-        scan_t[key] = (ms, p_ms, scan_bound(a, kw), traced,
-                       a[0].shape[0] * ctb_h, ctas, smem)
+    for (a, kw), (want, p_ms), key in zip(scans, plain, ("luma", "chroma")):
+        scan_t[key] = scan_figures(a, kw, want, f"phase 5 {key}", p_ms)
+        scan_err = max(scan_err, scan_t[key]["err"])
 
     # per-step walk time on the real states of the middle scan step (the
     # torch scan's route, one hevc_walk launch a step)
@@ -791,15 +894,11 @@ def hevc_path(dev, card, err):
         f"{(t_dev - t_issued) * 1000:.1f} ms later; the device-only decode "
         f"is {n_kernels} kernel launches, the device busy {busy:.2f} ms "
         f"(torch.profiler)")
-    for key, (ms, p_ms, bound, traced, lanes, ctas, smem) in scan_t.items():
-        say(f"phase 5 [{card}]: hevc_scan {key} ({lanes} lanes, "
-            f"{min(lanes, ctas)} CTAs of {smem} B shared memory): kernel "
-            f"{ms:.4f} ms a scan (median of {traced} traced runs), one step "
-            f"of its {steps}-CTB chain {ms / steps * 1000:.2f} us; the torch "
-            f"scan with the walk kernel a step took {steps} x "
-            f"{step_ms[key][0]:.4f} = {steps * step_ms[key][0]:.3f} ms of "
-            f"walks alone; plain scan {p_ms:.1f} ms (its wall); bound "
-            f"{bound[0]:.5f} ms ({bound[2]})")
+    for key, f in scan_t.items():
+        say_scan(f"phase 5 [{card}]: hevc_scan {key}", f, steps,
+                 f"; the torch scan with the walk kernel a step took {steps} "
+                 f"x {step_ms[key][0]:.4f} = {steps * step_ms[key][0]:.3f} "
+                 f"ms of walks alone")
     for key, (k_ms, p_ms) in step_ms.items():
         say(f"phase 5 [{card}]: walk step {key} (B="
             f"{captured[key][0][0][0].shape[0]}): kernel {k_ms:.4f} ms, "
@@ -841,23 +940,20 @@ def hevc_path(dev, card, err):
                     f"steps_ms_{key}": {"min": min(ev),
                                         "median": statistics.median(ev),
                                         "max": max(ev), "sum": sum(ev)}})
+    fmean = lambda k: statistics.mean(f[k] for f in scan_t.values())
     scan_rec = {"name": "hevc_scan", "route": "cuda",
                 "source": "jmcodec_tpu_torch/csrc/hevc_scan.cu",
                 "replaces": "jmcodec_tpu/kernels/hevc_tiles.py:712",
                 "launches": 0, "max_abs_err": scan_err,
-                "ms": mean(scan_t, 0), "plain_ms": mean(scan_t, 1),
-                "bound_ms": statistics.mean(v[2][0] for v in scan_t.values()),
-                "bound_by": max(v[2] for v in scan_t.values())[1],
+                "ms": fmean("ms"), "plain_ms": fmean("plain_ms"),
+                "bound_ms": statistics.mean(f["bound"][0]
+                                            for f in scan_t.values()),
+                "bound_by": max(f["bound"] for f in scan_t.values())[1],
                 "library_ms": None, "chain_ctbs": steps,
                 "launches_per_decode": launches}
-    for key, (ms, p_ms, bound, traced, lanes, ctas, smem) in scan_t.items():
-        scan_rec.update({f"ms_{key}": ms, f"plain_ms_{key}": p_ms,
-                         f"bound_ms_{key}": bound[0],
-                         f"step_ms_{key}": ms / steps,
-                         f"walk_steps_ms_{key}": steps * step_ms[key][0],
-                         f"runs_traced_{key}": traced, f"lanes_{key}": lanes,
-                         f"resident_ctas_{key}": ctas,
-                         f"smem_bytes_{key}": smem})
+    for key, f in scan_t.items():
+        scan_rec.update(scan_keys(f, key, steps))
+        scan_rec[f"walk_steps_ms_{key}"] = steps * step_ms[key][0]
     figures = {"slice": "hevc 1080p all-intra batch decode",
                "batch": BATCH, "e2e_fps": BATCH / t_e2e,
                "device_fps": BATCH / t_dev,
@@ -1114,13 +1210,10 @@ def hevc_inter_path(dev, card, walk_rec, scan_rec, err):
     chain = p0.Wp // C + HT.skew_for(C) * (p0.Hp // C - 1)
     scan_t, scan_err = {}, 0
     for (a, kw), key in zip(scans, ("luma", "chroma")):
-        got, ms, traced = scan_ms(lambda: HSC.scan_planes(*a, **kw),
-                                  "hevc_scan_kernel")
         want, t_plain = timed(lambda: HSC.scan_reference(*a, **kw))
-        e = max_abs(got, want)
-        scan_err = max(scan_err, e)
-        check(e == 0, f"inter {key} scan: hevc_scan != scan_reference")
-        scan_t[key] = (ms, t_plain * 1e3, scan_bound(a, kw), traced)
+        scan_t[key] = scan_figures(a, kw, want, f"phase 10 inter {key}",
+                                   t_plain * 1e3)
+        scan_err = max(scan_err, scan_t[key]["err"])
     captured = {}
 
     def capture(F, Z, resid, tu, mode, **kw):
@@ -1153,12 +1246,9 @@ def hevc_inter_path(dev, card, walk_rec, scan_rec, err):
         f"{(t_dev - t_issued) * 1000:.1f} ms later; {n_kernels} kernel "
         f"launches ({n_kernels / n:.0f} per picture), the device busy "
         f"{busy:.2f} ms (torch.profiler)")
-    for key, (ms, p_ms, bound, traced) in scan_t.items():
-        say(f"phase 10 [{card}]: hevc_scan {key} of the first P picture: "
-            f"kernel {ms:.4f} ms a scan (median of {traced} traced runs), "
-            f"one step of its {chain}-CTB chain {ms / chain * 1000:.2f} us; "
-            f"scan_reference {p_ms:.1f} ms (its wall); bound "
-            f"{bound[0]:.5f} ms ({bound[2]})")
+    for key, f in scan_t.items():
+        say_scan(f"phase 10 [{card}]: hevc_scan {key} of the first P "
+                 f"picture", f, chain, "")
     for key, (k_ms, p_ms) in step_ms.items():
         say(f"phase 10 [{card}]: walk step {key} of the first P picture "
             f"(B={captured[key][0][0][0].shape[0]}, step {tus[key][2] // 2} "
@@ -1182,20 +1272,19 @@ def hevc_inter_path(dev, card, walk_rec, scan_rec, err):
                     "source": "jmcodec_tpu_torch/csrc/hevc_scan.cu",
                     "replaces": "jmcodec_tpu/kernels/hevc_tiles.py:712",
                     "launches": 0, "max_abs_err": 0,
-                    "ms": mean(scan_t, 0), "plain_ms": mean(scan_t, 1),
-                    "bound_ms": statistics.mean(v[2][0]
-                                                for v in scan_t.values()),
-                    "bound_by": max(v[2] for v in scan_t.values())[1],
+                    "ms": statistics.mean(f["ms"] for f in scan_t.values()),
+                    "plain_ms": statistics.mean(f["plain_ms"]
+                                                for f in scan_t.values()),
+                    "bound_ms": statistics.mean(f["bound"][0]
+                                                for f in scan_t.values()),
+                    "bound_by": max(f["bound"]
+                                    for f in scan_t.values())[1],
                     "library_ms": None}
     for key in ("luma", "chroma"):
         walk_rec.update({f"ms_inter_{key}": step_ms[key][0],
                          f"plain_ms_inter_{key}": step_ms[key][1],
                          f"bound_ms_inter_{key}": bounds[key][0]})
-        ms, p_ms, bound, traced = scan_t[key]
-        scan_rec.update({f"ms_inter_{key}": ms, f"plain_ms_inter_{key}": p_ms,
-                         f"bound_ms_inter_{key}": bound[0],
-                         f"step_ms_inter_{key}": ms / chain,
-                         f"runs_traced_inter_{key}": traced})
+        scan_rec.update(scan_keys(scan_t[key], f"inter_{key}", chain))
     walk_rec["max_abs_err"] = max(walk_rec["max_abs_err"], err)
     scan_rec["max_abs_err"] = max(scan_rec["max_abs_err"], scan_err)
     figures = {"slice": "hevc 1080p inter stream decode", "pictures": n,

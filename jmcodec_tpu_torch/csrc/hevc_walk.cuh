@@ -1,22 +1,18 @@
 // The device code of the HEVC intra TU-tree walk (8.4.4.2), shared by the
 // walk kernel of one scan step (hevc_walk.cu) and the persistent scan
-// kernel (hevc_scan.cu): the staging helpers, the reference-position table
-// (ref_positions), the TU list's entries (make_entry), one TU by one warp
-// (walk_tu<LOG2>) and one whole CTB (walk_ctb: the ballot compaction of
-// the TU list, the positions, then the chain of TUs). hevc_walk.cu's notes
-// say what bounds the walk and what its design does about it.
+// kernel (hevc_scan.cu): the staging helpers, the reference positions of a
+// TU by sample (ref_positions, the walk kernel's table) or by 4x4 cell
+// (ref_cells, the scan kernel's), the TU list's entries (make_entry), one
+// TU by one warp (walk_tu<LOG2, CELLS>) and one whole CTB in z-order
+// (walk_ctb: the ballot compaction of the TU list, the positions, then the
+// chain of TUs; the walk kernel's). hevc_walk.cu's notes say what bounds
+// the walk kernel and what its design does about it, hevc_scan.cu's the
+// scan kernel's.
 //
 // Everything is in an anonymous namespace: each kernel source that
 // includes the header has its own copy of the constant tables.
 
 #pragma once
-
-// How walk_tu is compiled: inlined into the chain (the walk kernel), or,
-// where a source defines this as __noinline__ before including the header,
-// a function of its own (hevc_scan.cu says why).
-#ifndef HEVC_WALK_TU_INLINE
-#define HEVC_WALK_TU_INLINE __forceinline__
-#endif
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -169,6 +165,81 @@ __device__ __forceinline__ void ref_positions(uint16_t* P, const int32_t* sZ,
   P[2 * n2] = (uint16_t)corner;
 }
 
+// The cell form of ref_positions, for one TU of nc 4-sample cells per side
+// at cell (cx, cy), by one thread: P gets 2 nc + 1 entries, one a reference
+// cell in scan order (the left column's nc cells bottom-up, the corner,
+// the top row's nc cells). An available cell's entry is the position in F
+// of its first sample in scan order with bit 15 set (its other samples
+// follow it up the column or along the row); an unavailable cell's is the
+// position all its samples take (the last available sample before it, the
+// first available one for a leading run, `none` where nothing is
+// available). Positions are below 32768. Returns the availability bits in
+// scan order. NC: nc (4x4: 2, ... 32x32: 16).
+template <int NC>
+__device__ __forceinline__ unsigned long long ref_cells(
+    uint16_t* P, const int32_t* sZ, int WZ, int WF, int cx, int cy,
+    int none) {
+  constexpr int nc = NC;
+  const int x0 = cx << 2, y0 = cy << 2, n2 = nc << 2;      // n2 = 2n
+  const int z_org = sZ[(1 + cy) * WZ + 1 + cx];
+  unsigned long long avail = 0;
+#pragma unroll
+  for (int c = 0; c < nc; ++c) {
+    avail |= (unsigned long long)(sZ[(cy + nc - c) * WZ + cx] < z_org) << c;
+    avail |= (unsigned long long)(sZ[cy * WZ + 1 + cx + c] < z_org)
+             << (nc + 1 + c);
+  }
+  avail |= (unsigned long long)(sZ[cy * WZ + cx] < z_org) << nc;
+  int last = none;
+  if (avail != 0) {
+    const int fc = __ffsll((long long)avail) - 1;
+    last = fc < nc ? (y0 + n2 - 4 * fc) * WF + x0
+                   : y0 * WF + x0 + (fc == nc ? 0 : 4 * (fc - nc) - 3);
+  }
+#pragma unroll
+  for (int c = 0; c < nc; ++c) {  // left column, bottom-up
+    if (avail >> c & 1) {
+      const int p0 = (y0 + n2 - 4 * c) * WF + x0;
+      P[c] = (uint16_t)(0x8000 | p0);
+      last = p0 - 3 * WF;
+    } else {
+      P[c] = (uint16_t)last;
+    }
+  }
+  if (avail >> nc & 1) {
+    last = y0 * WF + x0;
+    P[nc] = (uint16_t)(0x8000 | last);
+  } else {
+    P[nc] = (uint16_t)last;
+  }
+#pragma unroll
+  for (int c = 0; c < nc; ++c) {  // top row, left to right
+    if (avail >> (nc + 1 + c) & 1) {
+      const int p0 = y0 * WF + x0 + 1 + 4 * c;
+      P[nc + 1 + c] = (uint16_t)(0x8000 | p0);
+      last = p0 + 3;
+    } else {
+      P[nc + 1 + c] = (uint16_t)last;
+    }
+  }
+  return avail;
+}
+
+// Position in F of reference sample i (0..4n, in pos_slot's scan order) of
+// a TU of size n: from its row of the sample table (ref_positions), or,
+// with CELLS, from its row of the cell table (ref_cells).
+template <int n, bool CELLS>
+__device__ __forceinline__ int ref_pos(const uint16_t* P, int i, int WF) {
+  if (!CELLS) return P[pos_slot<n>(i)];
+  if (i < 2 * n) {
+    const int e = P[i >> 2];
+    return e & 0x8000 ? (e & 0x7fff) - (i & 3) * WF : e;
+  }
+  if (i == 2 * n) return P[n / 2] & 0x7fff;
+  const int j = i - 2 * n - 1, e = P[n / 2 + 1 + (j >> 2)];
+  return e & 0x8000 ? (e & 0x7fff) + (j & 3) : e;
+}
+
 // Index into the reference vector of entry e of the angular main reference
 // ext[0..3n+1], where ext[n] is the corner, ext[n+1+i] = main[i], and
 // ext[e < n] (negative angles only) is the invAngle projection of the side
@@ -201,13 +272,14 @@ __device__ __forceinline__ uint4 make_entry(int v, int cx, int cy, int mode,
 }
 
 // One TU of size n = 1 << LOG2, by one warp. sP is the reference-position
-// table; sA, sB hold reference vectors (index -1 and 4n+1 are pad slots whose
-// value is only ever multiplied by 0), sE the projected main reference.
+// table (of samples, or with CELLS of cells: ref_pos); sA, sB hold
+// reference vectors (index -1 and 4n+1 are pad slots whose value is only
+// ever multiplied by 0), sE the projected main reference.
 // Loads are started first and what does not depend on them is computed in
 // their shadow: one warp hides its latencies only with its own
 // independent instructions.
-template <int LOG2>
-__device__ HEVC_WALK_TU_INLINE void walk_tu(int16_t* sF, const int16_t* sR,
+template <int LOG2, bool CELLS = false>
+__device__ __forceinline__ void walk_tu(int16_t* sF, const int16_t* sR,
                                         const uint16_t* sP, int* sA, int* sB,
                                         int* sE, uint4 ent, int WF, int C,
                                         bool luma, bool strong, int t) {
@@ -231,7 +303,7 @@ __device__ HEVC_WALK_TU_INLINE void walk_tu(int16_t* sF, const int16_t* sR,
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int i = t + kWarp * k;
-    own[k] = i < L ? sF[P[pos_slot<n>(i)]] : 0;
+    own[k] = i < L ? sF[ref_pos<n, CELLS>(P, i, WF)] : 0;
   }
   // small TUs: this thread's pixels t, t+32 in raster order, their residuals
   // and, for an angular mode, their two taps in the reference vector

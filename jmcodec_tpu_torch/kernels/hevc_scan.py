@@ -19,8 +19,11 @@ every frame, then the Cr planes, on one map a frame) and return the
 reconstructed planes [P, H, W] int32. They are the counterpart of
 jmcodec_tpu's jax.lax.scan (kernels/hevc_tiles.py: _intra_scan) with the
 skew of its inputs and the unskew of its output around it: the planes'
-CTB rows are its lanes, the first of each plane without a top neighbour,
-and skew (hevc_tables.skew_for of the luma CTB size) sets its wavefront.
+CTB rows are its lanes (the kernel walks the rows of two planes on one
+map, a frame's Cb and Cr, together: lanes()), the first of each plane
+without a top neighbour, and skew (hevc_tables.skew_for of the luma CTB
+size) sets its wavefront. The kernel walks each CTB's TUs by dependency
+level (kernels/hevc_levels.py), which gives the z-order walk's samples.
 hevc_tiles.decode_frames_hevc_scan routes a decode on the card here (two
 launches: luma, then Cb and Cr); CPU tensors take the torch scan there,
 and scan_planes raises on them.
@@ -106,28 +109,37 @@ def _load():
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.hevc_scan_resident.argtypes = ([ctypes.c_int] * 4
-                                           + [ctypes.c_void_p] * 2)
+        lib.hevc_scan_resident.argtypes = ([ctypes.c_int] * 5
+                                           + [ctypes.c_void_p] * 3)
         lib.hevc_scan_resident.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def lanes(planes: int, maps: int, ctb_h: int) -> int:
+    """The lanes of a scan_planes launch: each CTB row of up to two planes
+    on one cell map (the chroma scan's Cb and Cr of a frame)."""
+    return (planes // maps + 1) // 2 * maps * ctb_h
+
+
 def resident_ctas(*, C: int, skew: int, max_tu: int, base: bool = False,
-                  device=None):
-    """(the CTAs of one warp a scan_planes launch of this geometry keeps on
-    the card at once, the shared memory of each in bytes): a launch runs
-    min(planes * ctb_h, this many) CTAs, and the lanes beyond it wait for
-    a CTA to finish a lane. device: a CUDA device (None: the current
-    one)."""
-    n, smem = ctypes.c_int(0), ctypes.c_int(0)
+                  planes_per_map: int = 1, device=None):
+    """(the CTAs a scan_planes launch of this geometry keeps on the card at
+    once, the shared memory of each in bytes, the threads of each): a
+    launch runs min(lanes(...), this many) CTAs, and the lanes beyond it
+    wait for a CTA to finish a lane. planes_per_map: P / G of the launch
+    (two planes on one map share a lane). device: a CUDA device (None: the
+    current one)."""
+    n, smem, threads = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = _load().hevc_scan_resident(C, max_tu, skew, int(base),
-                                         ctypes.byref(n), ctypes.byref(smem))
+                                         min(planes_per_map, 2),
+                                         ctypes.byref(n), ctypes.byref(smem),
+                                         ctypes.byref(threads))
     if err != 0:
         raise RuntimeError(f"hevc_scan occupancy query failed: CUDA error "
                            f"{err}")
-    return n.value, smem.value
+    return n.value, smem.value, threads.value
 
 
 def scan_planes(resid, zidx, tu, mode, *, C: int, skew: int, max_tu: int,
@@ -141,12 +153,13 @@ def scan_planes(resid, zidx, tu, mode, *, C: int, skew: int, max_tu: int,
     dev = resid.device
     out = torch.empty(resid.shape, dtype=torch.int32, device=dev)
     # the lanes' progress flags, then the ticket
-    scratch = torch.zeros(P * ctb_h + 1, dtype=torch.int32, device=dev)
+    n_lanes = lanes(P, zidx.shape[0], ctb_h)
+    scratch = torch.zeros(n_lanes + 1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _load().hevc_scan_launch(
             resid.data_ptr(), None if base is None else base.data_ptr(),
             zidx.data_ptr(), tu.data_ptr(), mode.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), scratch.data_ptr() + 4 * P * ctb_h, P,
+            scratch.data_ptr(), scratch.data_ptr() + 4 * n_lanes, P,
             zidx.shape[0], ctb_h, ctb_w, C, max_tu, skew, int(is_chroma),
             int(strong), ZIDX_NONE, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -7,15 +7,19 @@ extremes, z-scan Z, CTBs with no neighbour available, a partial right
 column) at CTU 16, 32 and 64, luma and Cb + Cr, 1 and 17 frames, with and
 without an inter base; with more lanes than the card holds CTAs of the
 kernel at once; the same inputs through the kernel 50 times give the same
-bits every time (a flag read too early would not); and the decodes of the
-committed small HEVC streams go through it, two launches a picture and no
-hevc_walk launch. Marked `cuda`; skips without a card. Imports no jax:
+bits every time (a flag read too early would not); on planes of all-4x4
+CTBs (the widest levels of its walk by level), of 32x32 TUs on nearly flat
+references (the strong filter), and of random TU maps and Z (overlapping
+TUs, cells read before a later TU overwrites them); and the decodes of the committed small HEVC streams go through it, two launches a
+picture and no hevc_walk launch. Marked `cuda`; skips without a card.
+Imports no jax:
 
     JMX_TEST_TPU=1 python -m pytest tests/test_torch_hevc_scan_cuda.py -m cuda
 """
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,6 +57,8 @@ def _inputs(dev, ctu, plane, frames, ctb_h, ctb_w, inter, seed=5):
 
 
 def _check(args, kw):
+    """The kernel against scan_reference, one launch; returns its
+    planes."""
     n0 = HSC.LAUNCHES
     got = HSC.scan_planes(*args, **kw)
     assert HSC.LAUNCHES == n0 + 1
@@ -60,6 +66,15 @@ def _check(args, kw):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     return got
+
+
+def _with_maps(dev, args, kw, tu=None, zidx=None, mode=None, resid=None):
+    """args with some of its arrays replaced by numpy ones."""
+    out = list(args)
+    for i, a in ((0, resid), (1, zidx), (2, tu), (3, mode)):
+        if a is not None:
+            out[i] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return out, kw
 
 
 @pytest.mark.parametrize("inter", [False, True], ids=["intra", "inter"])
@@ -76,13 +91,15 @@ def test_kernel_matches_the_torch_scan(dev, ctu, plane, frames, inter):
                                              (64, "luma", True)])
 def test_more_lanes_than_resident_ctas(dev, ctu, plane, inter):
     """The lanes beyond the CTAs that fit wait for a CTA to finish a lane:
-    planes of three CTB rows, enough of them to outnumber the CTAs."""
-    C, max_tu, _, _ = PLANES[plane](ctu)
-    n, _ = HSC.resident_ctas(C=C, skew=HT.skew_for(ctu), max_tu=max_tu,
-                             base=inter)
-    frames = n // (3 if plane == "luma" else 6) + 1
+    planes of three CTB rows, enough of them to outnumber the CTAs (a
+    chroma lane holds the CTB row of a frame's Cb and Cr planes)."""
+    C, max_tu, chroma, _ = PLANES[plane](ctu)
+    geo = dict(C=C, skew=HT.skew_for(ctu), max_tu=max_tu, base=inter,
+               planes_per_map=2 if chroma else 1)
+    n = HSC.resident_ctas(**geo)[0]
+    frames = n // 3 + 1
     args, kw = _inputs(dev, ctu, plane, frames, 3, 2, inter)
-    assert args[0].shape[0] * 3 > n
+    assert HSC.lanes(args[0].shape[0], args[1].shape[0], 3) > n
     _check(args, kw)
 
 
@@ -109,3 +126,55 @@ def test_decode_goes_through_the_kernel(dev, name):
     assert (HSC.LAUNCHES - n0, HW.LAUNCHES - w0) == (2, 0)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("ctu,plane", [(64, "luma"), (32, "chroma"),
+                                       (16, "luma")])
+def test_all_4x4_ctbs(dev, ctu, plane):
+    """Every cell a 4x4 TU: a 64x64 CTB's 256 TUs on 90 levels of up to 6
+    TUs, three warps' pairs at once."""
+    args, kw = _inputs(dev, ctu, plane, 2, 3, 4, False, seed=13)
+    tu = np.full(tuple(args[2].shape), 2, np.int32)
+    _check(*_with_maps(dev, args, kw, tu=tu))
+
+
+@pytest.mark.parametrize("inter", [False, True], ids=["intra", "inter"])
+def test_32x32_tus_with_the_strong_filter(dev, inter):
+    """Luma 32x32 TUs on nearly flat references (a residual of -1..1), so
+    that the bilinear (strong) filter's flatness test holds for most of
+    them, in every mode."""
+    args, kw = _inputs(dev, 64, "luma", 2, 3, 4, inter, seed=17)
+    rng = np.random.default_rng(17)
+    shape = tuple(args[2].shape)
+    tu = np.zeros(shape, np.int32)
+    tu[:, ::8, ::8] = 5
+    resid = rng.integers(-1, 2, tuple(args[0].shape)).astype(np.int16)
+    mode = rng.integers(0, 35, shape).astype(np.int32)
+    assert kw["strong"]
+    _check(*_with_maps(dev, args, kw, tu=tu, resid=resid, mode=mode))
+
+
+@pytest.mark.parametrize("ctu,plane", [(64, "luma"), (32, "luma"),
+                                       (64, "chroma")])
+def test_random_maps_overlapping_tus(dev, ctu, plane):
+    """Every cell any TU size (TUs overlap) and a random Z (a TU may read a
+    cell that a later TU overwrites): the levels' order must still give
+    the z-order walk's samples."""
+    args, kw = _inputs(dev, ctu, plane, 2, 3, 4, False, seed=19)
+    rng = np.random.default_rng(19)
+    shape = tuple(args[2].shape)
+    T = min(kw["C"], kw["max_tu"])
+    tu = rng.choice(np.array([0, *range(2, T.bit_length())], np.int32),
+                    shape).astype(np.int32)
+    zidx = rng.integers(0, 1 << 12, shape).astype(np.int32)
+    _check(*_with_maps(dev, args, kw, tu=tu, zidx=zidx))
+
+
+def test_repeated_launches_of_many_lanes(dev):
+    """50 launches of 1080p's lanes at CTU 64 (17 CTB rows of 16 planes,
+    272 lanes, each waiting on the lane above) give the same bits."""
+    args, kw = _inputs(dev, 64, "luma", 16, 17, 6, False, seed=23)
+    want = HSC.scan_reference(*args, **kw)
+    for _ in range(50):
+        got = HSC.scan_planes(*args, **kw)
+        assert torch.equal(got, want)
