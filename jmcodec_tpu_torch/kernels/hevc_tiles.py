@@ -5,9 +5,11 @@ inter (P/B) path:
   0. inter only - phase-plane motion compensation of both lists from the
                   references' phase pyramids (prep_hevc_ref), weighted
                   combine, + the inter residuals: the inter base
-  1. residuals  - per-TU-size batched dequant + two-stage inverse DCT/DST
-                  as float64 matrix products (every partial sum is an
-                  integer below 2^27, so float64 is exact)
+  1. residuals  - dequant + two-stage inverse DCT/DST a TU at a time: on
+                  the card one launch of the hand-written CUDA kernel for
+                  the luma planes of a call and one for Cb + Cr
+                  (hevc_resid.py), on the CPU its plain torch version
+                  (per-TU-size batched float64 matrix products)
   2. intra scan - CTB-diagonal wavefront, lanes = CTB rows of every frame
                   (and of Cb and Cr for chroma): on the card one launch of
                   the hand-written CUDA kernel a scan (hevc_scan.py), on the
@@ -29,9 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..codec.hevc import transform as HTR
 from ..codec.hevc.plan import ZIDX_NONE
 from ..utils.device import require_cuda
+from . import hevc_resid as HR
 from . import hevc_tables as HT
 from ._planes import cell_origins, edge_pad
 from ._tables import device_table as _t
@@ -39,57 +41,6 @@ from .hevc_scan import scan_planes
 from .hevc_walk import walk
 
 _I32 = torch.int32
-
-
-# ---------------------------------------------------------------------------
-# phase 1: residuals
-# ---------------------------------------------------------------------------
-
-
-def _dequant_blocks(c, qp, log2: int):
-    """c [..., n, n] int32 levels, qp [...] int32 -> dequantised int32
-    (8.6.3, flat scaling list m = 16, 8-bit), clipped to int16 range."""
-    bd_shift = log2 + 3
-    ls = _t(HTR.LEVEL_SCALE, c.device)[(qp % 6).long()][..., None, None]
-    s = (qp // 6)[..., None, None]
-    d1 = c * (ls * 16)                       # |d1| < 2^26
-    one = torch.ones_like(s)
-    k = s - bd_shift                         # in [-8, 3]
-    lo_path = (d1 + (one << (bd_shift - 1 - s).clamp(min=0))) >> \
-        (-k).clamp(min=0)
-    kp = k.clamp(min=0)
-    lim = one << (15 - kp)
-    hi_path = torch.where(d1 >= lim, 32767,
-                          torch.where(d1 < -lim, -32768, d1 << kp))
-    return torch.where(k >= 0, hi_path,
-                       lo_path.clamp(-32768, 32767)).to(_I32)
-
-
-def _itransform_blocks(d, log2: int, dst: bool):
-    """Two-stage inverse transform (8.6.4.2) on [..., n, n] int32: columns,
-    then rows, each stage a float64 matrix product (exact, see above)."""
-    m = _t(HTR.DST4 if dst else HTR.DCT[1 << log2], d.device, torch.float64)
-    e = (d.to(torch.float64).transpose(-1, -2) @ m).transpose(-1, -2)
-    e = ((e.to(_I32) + 64) >> 7).clamp(-32768, 32767)
-    r = (e.to(torch.float64) @ m).to(_I32)
-    return ((r + 2048) >> 12).clamp(-32768, 32767)
-
-
-def _residual_plane(coeff, qp_cell, tu_log2, luma: bool, sizes):
-    """coeff [..., Hp, Wp] int32, qp_cell/tu_log2 [..., Hp/4, Wp/4] ->
-    residual plane [..., Hp, Wp] int32 (zero where no TU)."""
-    *lead, Hp, Wp = coeff.shape
-    resid = torch.zeros_like(coeff, dtype=_I32)
-    for log2 in sizes:
-        n = 1 << log2
-        c4 = n // 4
-        blocks = coeff.reshape(*lead, Hp // n, n, Wp // n, n).transpose(-3, -2)
-        mask = tu_log2[..., ::c4, ::c4] == log2
-        d = _dequant_blocks(blocks, qp_cell[..., ::c4, ::c4], log2)
-        r = _itransform_blocks(d, log2, dst=(luma and log2 == 2))
-        r = torch.where(mask[..., None, None], r, 0)
-        resid += r.transpose(-3, -2).reshape(*lead, Hp, Wp)
-    return resid
 
 
 # ---------------------------------------------------------------------------
@@ -225,10 +176,12 @@ def scan_torch(resid, zidx, tu, mode, *, C: int, skew: int, max_tu: int,
 
 def scan_kernel(device, walk_fn=walk) -> bool:
     """Does decode_frames_hevc_scan run each scan as the CUDA kernel
-    (hevc_scan.scan_planes)? On a CUDA device with the default walk_fn;
-    CPU tensors, and any other walk_fn (walk_reference: the plain route of
-    the checks), take the torch scan with that walk. No other route: a
-    failed build or launch raises."""
+    (hevc_scan.scan_planes), and the residual stage as the CUDA kernel
+    hevc_resid.resid_planes (there and in decode_frame_hevc_inter)? On a
+    CUDA device with the default walk_fn; CPU tensors, and any other
+    walk_fn (walk_reference: the plain route of the checks), take the
+    torch scan with that walk and hevc_resid.planes_reference. No other
+    route: a failed build or launch raises."""
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"the HEVC scan runs on the CPU or a CUDA device, "
                          f"not {device}")
@@ -414,13 +367,6 @@ def _sao_plane(plane, typ, offs, band, eo, log2n: int, pw: int, ph: int):
 # ---------------------------------------------------------------------------
 
 
-def _chroma_qp(qp_y, off):
-    """Chroma QP per chroma cell (Table 8-10) from the luma cell QP [F, Hp/4,
-    Wp/4] and the frame's offset [F]."""
-    return _t(HT.QPC_T, qp_y.device)[(qp_y[:, ::2, ::2] + off[:, None, None])
-                                     .clamp(0, 57).long()]
-
-
 def decode_frames_hevc_batch(Hp: int, Wp: int, log2_ctb: int, strong: bool,
                              deblock_on: bool, pw: int, ph: int,
                              width: int, height: int,
@@ -464,39 +410,38 @@ def decode_frames_hevc_scan(Hp: int, Wp: int, log2_ctb: int, strong: bool,
                             cb_qp_off, cr_qp_off, *, walk_fn=walk, base=None,
                             has_tu=None):
     """The scan stage of decode_frames_hevc_batch (its arguments of the
-    same names): residuals, then the luma and chroma wavefront scans, one
-    hevc_scan.scan_planes launch each on the card (scan_kernel), the torch
-    scan with walk_fn elsewhere (has_tu: the steps it walks). Returns the
-    int32 coded-size planes (Y, U, V) [F, Hp, Wp] (half size for chroma),
-    before the in-loop filters."""
-    (coeff_y, tu_y, mode_y, zidx_y, qp_y, coeff_cb, coeff_cr, tu_c, mode_c,
-     zidx_c, cb_qp_off, cr_qp_off) = (
-        a.to(_I32) for a in (
-            coeff_y, tu_y, mode_y, zidx_y, qp_y, coeff_cb, coeff_cr, tu_c,
-            mode_c, zidx_c, cb_qp_off, cr_qp_off))
+    same names): residuals (hevc_resid.resid_planes, one launch for luma
+    and one for Cb + Cr, on scan_kernel's route; else planes_reference),
+    then the luma and chroma
+    wavefront scans, one hevc_scan.scan_planes launch each on the card
+    (scan_kernel), the torch scan with walk_fn elsewhere (has_tu: the
+    steps it walks). Returns the int32 coded-size planes (Y, U, V) [F, Hp,
+    Wp] (half size for chroma), before the in-loop filters."""
+    kernel = scan_kernel(coeff_y.device, walk_fn)
+    residuals = HR.resid_planes if kernel else HR.planes_reference
+    # ---- residuals: int16 planes, luma [F, ...]; [Cb of every frame, Cr
+    # of every frame] ----
+    resid_y = residuals((coeff_y,), tu_y, qp_y, sizes=HR.LUMA_SIZES,
+                        dst4=True)
+    resid_c = residuals((coeff_cb, coeff_cr), tu_c, qp_y,
+                        sizes=HR.CHROMA_SIZES, offsets=(cb_qp_off, cr_qp_off))
+    zidx_y, tu_y, mode_y, zidx_c, tu_c, mode_c = (
+        a.to(_I32) for a in (zidx_y, tu_y, mode_y, zidx_c, tu_c, mode_c))
     nf = coeff_y.shape[0]
     C = 1 << log2_ctb
     skew = HT.skew_for(C)
     i16 = lambda a: a.clamp(-32768, 32767).to(torch.int16)
-    stack = lambda a, b: i16(torch.cat([a, b]))
-
-    # ---- residuals ----
-    resid_y = _residual_plane(coeff_y, qp_y, tu_y, True, (2, 3, 4, 5))
-    resid_cb = _residual_plane(coeff_cb, _chroma_qp(qp_y, cb_qp_off), tu_c,
-                               False, (2, 3, 4))
-    resid_cr = _residual_plane(coeff_cr, _chroma_qp(qp_y, cr_qp_off), tu_c,
-                               False, (2, 3, 4))
 
     # ---- luma: frames stacked on the lanes; chroma: [Cb of every frame,
     # Cr of every frame] on one map a frame ----
-    luma = ((i16(resid_y), zidx_y, tu_y, mode_y),
+    luma = ((resid_y, zidx_y, tu_y, mode_y),
             dict(C=C, skew=skew, max_tu=32, is_chroma=False, strong=strong,
                  base=None if base is None else i16(base[0])))
-    chroma = ((stack(resid_cb, resid_cr), zidx_c, tu_c, mode_c),
+    chroma = ((resid_c, zidx_c, tu_c, mode_c),
               dict(C=C // 2, skew=skew, max_tu=16, is_chroma=True,
                    strong=False,
-                   base=None if base is None else stack(*base[1:])))
-    if scan_kernel(coeff_y.device, walk_fn):
+                   base=None if base is None else i16(torch.cat(base[1:]))))
+    if kernel:
         Y, UV = (scan_planes(*(a.contiguous() for a in args), **kw)
                  for args, kw in (luma, chroma))
     else:
@@ -766,11 +711,10 @@ def decode_frame_hevc_inter(Hp: int, Wp: int, log2_ctb: int, strong: bool,
     None to walk every step (the torch scan's; the kernel's route reads
     no has_tu). Returns (Y, U, V) uint8 [height, width] (half
     size for chroma) on the tensors' device."""
-    (coeff_y, qp_y, coeff_cb, coeff_cr, cb_qp_off, cr_qp_off, inter4, mv,
-     ref_slot, pred_fl, tu_inter_y, tu_inter_c, wp_w) = (
-        a.to(_I32) for a in (
-            coeff_y, qp_y, coeff_cb, coeff_cr, cb_qp_off, cr_qp_off, inter4,
-            mv, ref_slot, pred_fl, tu_inter_y, tu_inter_c, wp_w))
+    inter4, mv, ref_slot, pred_fl, wp_w = (
+        a.to(_I32) for a in (inter4, mv, ref_slot, pred_fl, wp_w))
+    residuals = (HR.resid_planes if scan_kernel(coeff_y.device, walk_fn)
+                 else HR.planes_reference)
 
     # ---- motion compensation (whole frame, both lists) ----
     def predict(mc, refs, c, log2wd):
@@ -785,14 +729,14 @@ def decode_frame_hevc_inter(Hp: int, Wp: int, log2_ctb: int, strong: bool,
     pred_cb = predict(_mc_hevc_chroma, refs_cb, 1, chroma_log2wd)
     pred_cr = predict(_mc_hevc_chroma, refs_cr, 2, chroma_log2wd)
 
-    # ---- inter residuals (the DCT at every size, also 4x4 luma) ----
-    resid_y = _residual_plane(coeff_y, qp_y, tu_inter_y[None], False,
-                              (2, 3, 4, 5))
+    # ---- inter residuals (the DCT at every size, also 4x4 luma), int16:
+    # clip(pred + r, 0, 255) is the same for r and its saturation ----
+    resid_y = residuals((coeff_y,), tu_inter_y[None], qp_y,
+                        sizes=HR.LUMA_SIZES)
     # 4:2:0 chroma TUs are at most 16 (half the 32 luma max, 7.4.9.8)
-    resid_cb = _residual_plane(coeff_cb, _chroma_qp(qp_y, cb_qp_off),
-                               tu_inter_c[None], False, (2, 3, 4))
-    resid_cr = _residual_plane(coeff_cr, _chroma_qp(qp_y, cr_qp_off),
-                               tu_inter_c[None], False, (2, 3, 4))
+    resid_cb, resid_cr = residuals(
+        (coeff_cb, coeff_cr), tu_inter_c[None], qp_y, sizes=HR.CHROMA_SIZES,
+        offsets=(cb_qp_off, cr_qp_off)).split(1)
 
     # ---- inter base = clip(MC + residual), masked to inter cells ----
     up4 = lambda m: m.repeat_interleave(4, 0).repeat_interleave(4, 1)

@@ -129,14 +129,16 @@ def run_calls(calls) -> list:
 
 def with_counts(fn, *args):
     """(fn(*args), the counts it made): {"dequant_idct", "hevc_walk",
-    "hevc_scan", "h264_intra", "h264_deblock"} kernel launches and
-    "lane_exchanges" (the row-sharded scans' boundary-lane exchanges) on
-    this rank."""
-    from ..kernels import h264_scan, hevc_scan, hevc_walk, idct, recon_tiles
+    "hevc_scan", "hevc_resid", "h264_intra", "h264_deblock"} kernel
+    launches and "lane_exchanges" (the row-sharded scans' boundary-lane
+    exchanges) on this rank."""
+    from ..kernels import (h264_scan, hevc_resid, hevc_scan, hevc_walk, idct,
+                           recon_tiles)
 
     read = lambda: {"dequant_idct": idct.LAUNCHES,
                     "hevc_walk": hevc_walk.LAUNCHES,
                     "hevc_scan": hevc_scan.LAUNCHES,
+                    "hevc_resid": hevc_resid.LAUNCHES,
                     "h264_intra": h264_scan.INTRA_LAUNCHES,
                     "h264_deblock": h264_scan.DEBLOCK_LAUNCHES,
                     "lane_exchanges": recon_tiles.LANE_EXCHANGES}

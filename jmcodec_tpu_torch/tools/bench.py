@@ -75,6 +75,7 @@ from jmcodec_tpu_torch.api.session import (Codec, DecoderSession,
                                            EncoderParams, EncoderSession,
                                            PixFmt)
 from jmcodec_tpu_torch.kernels import h264_scan as HS
+from jmcodec_tpu_torch.kernels import hevc_resid as HR
 from jmcodec_tpu_torch.kernels import hevc_scan as HSC
 from jmcodec_tpu_torch.kernels import hevc_walk as HW
 from jmcodec_tpu_torch.kernels import idct as ID
@@ -113,7 +114,7 @@ def _sync(dev):
 
 def _launches() -> dict:
     return {"hevc_walk": HW.LAUNCHES, "hevc_scan": HSC.LAUNCHES,
-            "dequant_idct": ID.LAUNCHES,
+            "hevc_resid": HR.LAUNCHES, "dequant_idct": ID.LAUNCHES,
             "h264_intra": HS.INTRA_LAUNCHES,
             "h264_deblock": HS.DEBLOCK_LAUNCHES}
 

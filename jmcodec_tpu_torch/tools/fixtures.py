@@ -349,6 +349,39 @@ def synth_idct_blocks(N: int, seed: int = 0):
     return coeffs, qp, dc, mask
 
 
+def synth_resid_planes(frames: int, H: int, W: int, seed: int = 0, *,
+                       chroma: bool = False, sizes=(2, 3, 4, 5)):
+    """Seeded inputs of the HEVC residual stage (hevc_resid.resid_planes
+    and planes_reference) as numpy arrays, for `frames` H x W planes:
+    (coeffs, tu, qp_y, offsets). coeffs: one (luma) or two (Cb, Cr)
+    [frames, H, W] int16 level planes, mostly within +-400, 2% at -32768
+    or 32767, and about a third of the 8x8 blocks all zero; tu
+    [frames, H/4, W/4] int8, each cell drawn from 0, `sizes` and a value
+    outside them (5 for chroma's (2, 3, 4), else 1), so blocks of
+    different sizes overlap; qp_y, the luma cell QP [frames, H/4, W/4]
+    int8 (twice as many cells a side for chroma) cycling through every
+    value 0..51, shuffled; offsets None, or for chroma the Cb and Cr QP
+    offsets [frames] int32 in -12..12."""
+    rng = np.random.default_rng(seed)
+    s = 2 if chroma else 1
+    coeffs = []
+    for _ in range(1 + chroma):
+        c = rng.integers(-400, 401, (frames, H, W))
+        big = rng.random(c.shape) < 0.02
+        c[big] = rng.choice([-32768, 32767], int(big.sum()))
+        zero = rng.random((frames, H // 8, W // 8)) < 0.3
+        c[zero.repeat(8, 1).repeat(8, 2)] = 0
+        coeffs.append(c.astype(np.int16))
+    outside = 5 if max(sizes) < 5 else 1
+    tu = rng.choice(np.array([0, outside, *sizes]), (frames, H // 4, W // 4))
+    n = frames * (s * H // 4) * (s * W // 4)
+    qp = rng.permutation(np.arange(n) % 52).reshape(frames, s * H // 4,
+                                                    s * W // 4)
+    offsets = (tuple(rng.integers(-12, 13, frames).astype(np.int32)
+                     for _ in range(2)) if chroma else None)
+    return coeffs, tu.astype(np.int8), qp.astype(np.int8), offsets
+
+
 def _copy_fields(src, dst):
     for name, val in vars(src).items():
         setattr(dst, name, val.copy()

@@ -7,7 +7,9 @@ scan over the inter base, filters) in decode order. First once under
 torch.profiler as it runs: the card, the device's busy time, the kernel
 launches in all and per picture, and the kernels ranked by device time.
 Then with a synchronise around each stage (plan upload, pyramid prep,
-luma and chroma MC, residuals, the two scan kernels, deblocking, SAO): the
+luma and chroma MC, resid_planes (four hevc_resid launches a picture:
+the intra and the inter residuals, luma and Cb + Cr), the two scan
+kernels, deblocking, SAO): the
 unprofiled wall of each stage summed over the stream, and under the
 profiler each stage's launches and device busy time. A stage whose busy
 time is far below its wall waits on the host's issue of launches. The
@@ -27,14 +29,18 @@ import torch
 
 from jmcodec_tpu_torch.api import hevc_inter as HI
 from jmcodec_tpu_torch.codec.hevc.refdec import HevcRefDecoder
+from jmcodec_tpu_torch.kernels import hevc_resid as HR
 from jmcodec_tpu_torch.kernels import hevc_tiles as HTT
 from jmcodec_tpu_torch.tools.fixtures import inter_fixture_stream
 from jmcodec_tpu_torch.tools.profile_h264_intra import _staged
 from jmcodec_tpu_torch.tools.profiling import profile_decode
 from jmcodec_tpu_torch.utils.device import require_cuda
 
-STAGES = ("stack_plans", "prep_hevc_ref", "_mc_hevc_luma", "_mc_hevc_chroma",
-          "_residual_plane", "scan_planes", "_deblock", "_sao_plane")
+# (module, function): each a stage of the decode
+STAGES = tuple((HR, n) if n == "resid_planes" else (HTT, n) for n in (
+    "stack_plans", "prep_hevc_ref", "_mc_hevc_luma", "_mc_hevc_chroma",
+    "resid_planes", "scan_planes", "_deblock", "_sao_plane"))
+NAMES = tuple(name for _, name in STAGES)
 
 
 def main(argv=None) -> int:
@@ -56,8 +62,8 @@ def main(argv=None) -> int:
     profile_decode(decode, title, args.trace)
 
     walls = {}
-    for name in STAGES:
-        setattr(HTT, name, _staged(name, getattr(HTT, name), walls))
+    for mod, name in STAGES:
+        setattr(mod, name, _staged(name, getattr(mod, name), walls))
     decode()                                   # warm-up with the stages
     walls.clear()
     torch.cuda.synchronize()
@@ -67,8 +73,8 @@ def main(argv=None) -> int:
     t_all = time.perf_counter() - t0
     print(f"unprofiled decode of {len(plans)} pictures, a synchronise "
           f"around each stage: {t_all * 1e3:.1f} ms; " + ", ".join(
-              f"{n} {walls.get(n, 0.0) * 1e3:.1f} ms" for n in STAGES))
-    profile_decode(decode, title + ", by stage", None, STAGES)
+              f"{n} {walls.get(n, 0.0) * 1e3:.1f} ms" for n in NAMES))
+    profile_decode(decode, title + ", by stage", None, NAMES)
     return 0
 
 

@@ -54,7 +54,8 @@ def test_figure_on_the_cpu(figures, name):
     fig = figures[name]
     assert fig["fps"] > 0 and fig["bit_exact"] is True
     assert fig["launches"] == {"hevc_walk": 0, "hevc_scan": 0,
-                               "dequant_idct": 0, "h264_intra": 0,
+                               "hevc_resid": 0, "dequant_idct": 0,
+                               "h264_intra": 0,
                                "h264_deblock": 0}
     if name == "encode":
         # the two warm-up frames, then the two timed ones once

@@ -1,7 +1,19 @@
-"""The port's HEVC residual stage (dequant + float64 inverse DCT/DST)
-equals jmcodec_tpu's _residual_plane bit for bit (tolerance 0: exact
-integer codec), on seeded random levels that reach both dequant paths
-and the int16 clips."""
+"""The port's HEVC residual stage equals jmcodec_tpu's _residual_plane bit
+for bit (tolerance 0: exact integer codec). The plain version
+(kernels/hevc_resid.py: residual_reference, dequant + float64 inverse
+DCT/DST) on seeded random levels that reach both dequant paths and the
+int16 clips, at one size and mixed, intra luma (the DST) and the inter
+form (the DCT at 4x4), with maps holding 0 and values outside `sizes`;
+planes_reference, the kernel's plain version in its layout, with the
+batch's chroma QP through chroma_qp and per-frame offsets, and its int16
+output (the sum of overlapping blocks, which int16 holds); the kernel's
+table
+against the codec's; resid_planes' checks and its CPU dispatch; and the
+residual stage's two routes in hevc_tiles. The kernel itself runs only on
+the card (tests/test_torch_hevc_resid_cuda.py)."""
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -10,15 +22,22 @@ import pytest
 import torch
 
 from jmcodec_tpu.kernels import hevc_tiles as JT
+from jmcodec_tpu_torch.codec.hevc import transform as HTR
+from jmcodec_tpu_torch.kernels import hevc_resid as HR
+from jmcodec_tpu_torch.kernels import hevc_tables as HT
 from jmcodec_tpu_torch.kernels import hevc_tiles as PT
+from jmcodec_tpu_torch.tools.fixtures import synth_resid_planes
+
+CSRC = os.path.join(os.path.dirname(HR.__file__), "..", "csrc",
+                    "hevc_resid.cu")
 
 
-def _inputs(rng, frames, Hp, Wp, sizes):
+def _inputs(rng, frames, Hp, Wp, sizes, extra=()):
     coeff = rng.integers(-400, 401, (frames, Hp, Wp))
     big = rng.random((frames, Hp, Wp)) < 0.02       # reach the int16 clips
     coeff[big] = rng.choice([-32768, 32767], big.sum())
     qp = rng.integers(0, 52, (frames, Hp // 4, Wp // 4))
-    tu = rng.choice(np.asarray(sizes), (frames, Hp // 4, Wp // 4))
+    tu = rng.choice(np.asarray([*sizes, *extra]), (frames, Hp // 4, Wp // 4))
     return (coeff.astype(np.int32), qp.astype(np.int32),
             tu.astype(np.int32))
 
@@ -26,14 +45,19 @@ def _inputs(rng, frames, Hp, Wp, sizes):
 _jax_residual = jax.jit(JT._residual_plane, static_argnums=(3, 4))
 
 
+def _jax_planes(coeff, qp, tu, luma, sizes):
+    return np.stack([np.asarray(_jax_residual(
+        jnp.asarray(coeff[f]), jnp.asarray(qp[f]), jnp.asarray(tu[f]), luma,
+        sizes)) for f in range(coeff.shape[0])])
+
+
 def _check(coeff, qp, tu, luma, sizes):
-    got = PT._residual_plane(torch.from_numpy(coeff), torch.from_numpy(qp),
-                             torch.from_numpy(tu), luma, sizes).numpy()
+    got = HR.residual_reference(torch.from_numpy(coeff), torch.from_numpy(qp),
+                                torch.from_numpy(tu), luma, sizes).numpy()
+    want = _jax_planes(coeff, qp, tu, luma, sizes)
     for f in range(coeff.shape[0]):
-        want = np.asarray(_jax_residual(
-            jnp.asarray(coeff[f]), jnp.asarray(qp[f]), jnp.asarray(tu[f]),
-            luma, sizes))
-        assert np.array_equal(got[f], want), f"frame {f}"
+        assert np.array_equal(got[f], want[f]), f"frame {f}"
+    return want
 
 
 @pytest.mark.parametrize("luma,log2", [(True, 2), (False, 2), (True, 3),
@@ -50,3 +74,166 @@ def test_residual_mixed_sizes_batched(luma):
     sizes = (2, 3, 4, 5) if luma else (2, 3, 4)
     rng = np.random.default_rng(3 + luma)
     _check(*_inputs(rng, 2, 64, 64, sizes), luma, sizes)
+
+
+@pytest.mark.parametrize("luma,sizes,extra",
+                         [(False, (2, 3, 4, 5), (0,)),
+                          (True, (2, 3, 4, 5), (0, 1, 6)),
+                          (False, (2, 3, 4), (0, 5))],
+                         ids=["inter_luma", "luma_outside", "chroma_5"])
+def test_residual_maps_outside_sizes(luma, sizes, extra):
+    """The inter form (the DCT at 4x4 on a luma plane) and maps holding 0
+    and values outside `sizes`: those cells' blocks contribute nothing."""
+    rng = np.random.default_rng(40 + len(extra))
+    coeff, qp, tu = _inputs(rng, 2, 64, 64, sizes, extra)
+    want = _check(coeff, qp, tu, luma, sizes)
+    assert np.isin(tu, extra).mean() > 0.1 and np.abs(want).max() > 0
+
+
+def test_planes_reference_chroma_qp_batch():
+    """planes_reference on Cb + Cr of a batch, each frame's offsets apart:
+    the JAX batch's chroma QP (QPC_T of the clipped qp_y[::2, ::2] +
+    offset) through _residual_plane, Cb of every frame, then Cr, in
+    int16."""
+    coeffs, tu, qp, offs = synth_resid_planes(3, 32, 48, seed=7,
+                                              chroma=True, sizes=(2, 3, 4))
+    offs = (np.array([-12, 3, 12], np.int32), offs[1])
+    got = HR.planes_reference(
+        tuple(torch.from_numpy(c) for c in coeffs), torch.from_numpy(tu),
+        torch.from_numpy(qp), sizes=(2, 3, 4),
+        offsets=tuple(torch.from_numpy(o) for o in offs)).numpy()
+    assert got.dtype == np.int16 and got.shape == (6, 32, 48)
+    for k, (c, off) in enumerate(zip(coeffs, offs)):
+        q = JT._QPC_T[np.clip(qp[:, ::2, ::2].astype(np.int32)
+                              + off[:, None, None], 0, 57)]
+        want = _jax_planes(c.astype(np.int32), q, tu.astype(np.int32), False,
+                           (2, 3, 4))
+        assert np.array_equal(got[3 * k:3 * k + 3],
+                              np.clip(want, -32768, 32767))
+    q_t = HR.chroma_qp(torch.from_numpy(qp).to(torch.int32),
+                       torch.from_numpy(offs[0]))
+    assert set(q_t[0].unique().tolist()) <= {0, *range(52)}
+    assert q_t.shape == (3, 8, 12)
+
+
+def test_planes_reference_int16_holds_the_sum():
+    """The int16 output loses nothing: a pixel lies in at most one block of
+    each size, and a size adds at most (32767 sum_i |M(i, j)| + 2048) >>
+    12 (the column stage's clip bounds its row), 28,224 over the four
+    DCTs' largest columns (the DST's are smaller), below 2^15. Blocks of
+    all four sizes overlapping on levels at the int16 extremes and QP 51
+    (saturated dequantisation): the JAX int32 sum, and planes_reference's
+    int16 planes equal to it."""
+    row = lambda m: (32767 * int(np.abs(m).sum(0).max()) + 2048) >> 12
+    assert sum(row(HTR.DCT[n]) for n in (4, 8, 16, 32)) == 28224
+    assert row(HTR.DST4) <= row(HTR.DCT[4])
+    rng = np.random.default_rng(11)
+    coeff = rng.choice(np.array([-32768, 32767]), (2, 64, 64))
+    qp = np.full((2, 16, 16), 51)
+    tu = np.zeros((2, 16, 16), np.int64)
+    for y0 in (0, 8):                # four nested origins a 32x32 region
+        for x0 in (0, 8):
+            tu[:, y0, x0], tu[:, y0 + 4, x0 + 4] = 5, 4
+            tu[:, y0 + 6, x0 + 6], tu[:, y0 + 7, x0 + 7] = 3, 2
+    want = _jax_planes(coeff.astype(np.int32), qp.astype(np.int32),
+                       tu.astype(np.int32), True, (2, 3, 4, 5))
+    assert 4000 < np.abs(want).max() <= 28224
+    got = HR.planes_reference(
+        (torch.from_numpy(coeff.astype(np.int16)),),
+        torch.from_numpy(tu.astype(np.int8)),
+        torch.from_numpy(qp.astype(np.int8)), sizes=(2, 3, 4, 5), dst4=True)
+    assert got.dtype == torch.int16 and np.array_equal(got.numpy(), want)
+
+
+def test_kernel_table_is_the_codecs():
+    """The kernel's int8 table holds the codec's matrices (the n-point DCT
+    as rows 0, 32/n, ... of the 32-point one), LEVEL_SCALE and QPC_T, at
+    the offsets csrc/hevc_resid.cu names."""
+    tab = HR.tables().astype(np.int32)
+    dct32 = tab[HR.TAB_DCT:HR.TAB_DCT + 1024].reshape(32, 32)
+    for n in (4, 8, 16, 32):
+        assert np.array_equal(dct32[::32 // n, :n], HTR.DCT[n])
+    assert np.array_equal(tab[HR.TAB_DST:HR.TAB_DST + 16].reshape(4, 4),
+                          HTR.DST4)
+    assert np.array_equal(tab[HR.TAB_LS:HR.TAB_LS + 6], HTR.LEVEL_SCALE)
+    assert np.array_equal(tab[HR.TAB_QPC:HR.TAB_LEN], HT.QPC_T)
+    assert np.array_equal(HT.QPC_T, JT._QPC_T)
+    src = open(CSRC).read()
+    consts = dict(re.findall(r"constexpr int (kTab\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "kTabDct": HR.TAB_DCT, "kTabDst": HR.TAB_DST, "kTabLs": HR.TAB_LS,
+        "kTabQpc": HR.TAB_QPC, "kTabLen": HR.TAB_LEN}
+
+
+def _small(chroma):
+    sizes = (2, 3, 4) if chroma else (2, 3, 4, 5)
+    coeffs, tu, qp, offs = synth_resid_planes(2, 32, 32, seed=3,
+                                              chroma=chroma, sizes=sizes)
+    t = torch.from_numpy
+    return ([t(c) for c in coeffs], t(tu), t(qp),
+            None if offs is None else [t(o) for o in offs], sizes)
+
+
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_resid_planes_cpu_dispatch(chroma):
+    """On CPU tensors resid_planes is planes_reference, with no launch."""
+    coeffs, tu, qp, offs, sizes = _small(chroma)
+    n = HR.LAUNCHES
+    got = HR.resid_planes(tuple(coeffs), tu, qp, sizes=sizes,
+                          dst4=not chroma,
+                          offsets=None if offs is None else tuple(offs))
+    want = HR.planes_reference(tuple(coeffs), tu, qp, sizes=sizes,
+                               dst4=not chroma,
+                               offsets=None if offs is None else tuple(offs))
+    assert HR.LAUNCHES == n and torch.equal(got, want)
+    assert got.shape == (2 * len(coeffs), 32, 32) and got.any()
+
+
+def test_resid_planes_checks():
+    """The kernel's wrapper refuses what the kernel does not take, before
+    its device check, and raises on a tensor that is not a CUDA one."""
+    coeffs, tu, qp, offs, sizes = _small(True)
+    meta = lambda a: torch.empty_like(a, device="meta")
+    c2 = tuple(map(meta, coeffs))
+    args = dict(sizes=sizes, offsets=tuple(map(meta, offs)))
+    mtu, mqp = meta(tu), meta(qp)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        HR._check(c2, mtu, mqp, sizes, args["offsets"])
+    bad = [
+        ((c2[0].to(torch.int32), c2[1]), mtu, mqp, args, TypeError),
+        (c2, mtu.to(torch.int32), mqp, args, TypeError),
+        (c2, mtu, mqp[:, :8], args, ValueError),
+        (c2, mtu, mqp, dict(args, sizes=(1, 2)), ValueError),
+        (c2, mtu, mqp, dict(args, sizes=()), ValueError),
+        (c2, mtu, mqp, dict(args, sizes=(2,)), ValueError),
+        (c2, mtu, mqp, dict(args, sizes=HR.LUMA_SIZES), ValueError),
+        (c2, mtu, mqp, dict(args, offsets=args["offsets"][:1]), ValueError),
+        (c2, mtu, mqp, dict(args, offsets=(args["offsets"][0],
+                                           meta(tu)[:, 0, 0])), TypeError),
+        (c2 * 2, mtu, mqp, args, ValueError),
+        ((c2[0].transpose(1, 2), c2[1]), mtu, mqp, args, ValueError),
+        (tuple(c[:, :24] for c in c2), mtu[:, :6], mqp[:, :12], args,
+         ValueError),
+    ]
+    for c, t, q, kw, exc in bad:
+        with pytest.raises(exc):
+            HR._check(c, t, q, kw["sizes"], kw["offsets"])
+        with pytest.raises(exc):
+            HR.resid_planes(c, t, q, **kw)
+
+
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_residual_stage_routes(chroma):
+    """The residual stage's two routes in hevc_tiles (scan_kernel's:
+    resid_planes, else planes_reference) give the same int16 planes on
+    CPU tensors, also on int32 maps and levels, and the CPU takes the
+    plain route."""
+    assert not PT.scan_kernel(torch.device("cpu"))
+    coeffs, tu, qp, offs, sizes = _small(chroma)
+    kw = dict(sizes=sizes, dst4=not chroma,
+              offsets=None if offs is None else tuple(offs))
+    want = HR.planes_reference(tuple(coeffs), tu, qp, **kw)
+    i32 = lambda a: a.to(torch.int32)
+    for fn in (HR.planes_reference, HR.resid_planes):
+        got = fn(tuple(map(i32, coeffs)), i32(tu), i32(qp), **kw)
+        assert got.dtype == torch.int16 and torch.equal(got, want)

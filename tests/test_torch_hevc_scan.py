@@ -21,6 +21,7 @@ import torch
 
 from jmcodec_tpu.kernels import hevc_tiles as JT
 from jmcodec_tpu_torch.api.hevc_intra import parse_hevc_intra_plans
+from jmcodec_tpu_torch.kernels import hevc_resid as HR
 from jmcodec_tpu_torch.kernels import hevc_scan as HS
 from jmcodec_tpu_torch.kernels import hevc_tables as HT
 from jmcodec_tpu_torch.kernels import hevc_tiles as PT
@@ -151,7 +152,7 @@ def test_decode_scan_on_the_cpu_is_the_torch_scan(small_intra):
     nf, C = Y.shape[0], 1 << log2_ctb
     i32 = lambda a: a.to(torch.int32)
     coeff_y, tu_y, mode_y, zidx_y, qp_y = map(i32, args[9:14])
-    resid = PT._residual_plane(coeff_y, qp_y, tu_y, True, (2, 3, 4, 5))
+    resid = HR.residual_reference(coeff_y, qp_y, tu_y, True, (2, 3, 4, 5))
     want = HS.scan_reference(
         resid.clamp(-32768, 32767).to(torch.int16), zidx_y, tu_y, mode_y,
         C=C, skew=HT.skew_for(C), max_tu=32, is_chroma=False, strong=strong)
