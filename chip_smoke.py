@@ -79,7 +79,9 @@ non-zero:
      time (one replay under torch.profiler); the first P picture's two
      hevc_scan launches against scan_reference, as phase 5 times the
      intra batch's (bit for bit, device ms, chain, lanes,
-     plain wall, bound); and the walk kernel against walk_reference at the
+     plain wall, bound); its four hevc_resid launches (inter luma and Cb +
+     Cr, then intra), each against planes_reference and timed as phase 30
+     times the batch's; and the walk kernel against walk_reference at the
      middle scan step of that picture on the torch scan's route
  11. decode the H.264 P fixture on the card (decode_h264): the
      dequant_idct kernel launched twice per picture, h264_intra once a
@@ -237,11 +239,18 @@ non-zero:
      tools/fixtures.synth_resid_planes (every QP 0..51, levels at the
      int16 extremes, all-zero blocks, random per-cell TU maps whose
      blocks overlap, cells outside `sizes`): intra luma (the DST), inter
-     luma, Cb + Cr with per-frame offsets, maps of one TU size, levels all
+     luma, Cb + Cr with per-frame offsets (also on 48x80 planes, whose
+     last areas lie half outside), maps of one TU size, levels all
      zero, a map without a TU; then at the main path's shapes, the 1080p
      batch of 16's luma planes and its Cb + Cr, as stack_plans gives them:
-     each launch's device time (the median of REPS profiler runs) against
-     its bound and against the plain stage's device busy time. Every HEVC
+     each launch's ms by CUDA events (the median of REPS runs of
+     RESID_RUN launches after a warm-up), with the profiler's device time
+     of one launch beside it, against its bound and against the plain
+     stage's device busy time; then the luma launch on maps and levels
+     derived from the batch's that isolate one kind of work (without its
+     32x32 TUs, with only those, with no zero level so that no block is
+     DC-only, one TU size everywhere on dense seeded levels), each bit
+     for bit and timed the same way. Every HEVC
      path checks that the residual stage was hevc_resid (one launch for
      the luma planes and one for Cb + Cr a decode_frames_hevc_scan, two
      more a picture for an inter picture's residuals) and that
@@ -260,8 +269,8 @@ With --sp N (N > 1; needs N cards) only phases 1-2 and this one run:
 
 With --only hevc, --only h264, --only hevc_inter, --only h264_inter,
 --only session, --only hevc_host, --only encode, --only parallel,
---only tools, --only bench, --only quality or --only h264_scan (phase 27
-alone) just that path is driven
+--only tools, --only bench, --only quality, --only h264_scan (phase 27
+alone) or --only resid (phase 30 alone) just that path is driven
 (phase 3 with either HEVC path, the session, the host route, the parallel
 layer, the tools and the bench, phase 6 with either H.264 path, the
 session, the encoder, the parallel layer, the tools, the bench and the
@@ -627,20 +636,21 @@ def hevc_scan_counts(what, want, resid=None):
     return n
 
 
-def hevc_scan_capture(fn):
-    """fn() with hevc_tiles' scan_planes recording its arguments: (fn's
-    result, [(args, kwargs), ...] of its launches in order)."""
-    cap, saved = [], HTT.scan_planes
+def calls_of(mod, name, fn):
+    """fn() with mod.<name> (hevc_tiles' scan_planes, hevc_resid's
+    resid_planes) recording its arguments: (fn's result, [(args, kwargs),
+    ...] of its calls in order)."""
+    cap, saved = [], getattr(mod, name)
 
     def run(*a, **kw):
         cap.append((a, kw))
         return saved(*a, **kw)
 
-    HTT.scan_planes = run
+    setattr(mod, name, run)
     try:
         out = fn()
     finally:
-        HTT.scan_planes = saved
+        setattr(mod, name, saved)
     return out, cap
 
 
@@ -841,8 +851,9 @@ BUTTERFLY_ADDS = {2: 1.0, 3: 1.5, 4: 1.75, 5: 1.875}
 
 
 def resid_bound(coeffs, tu, qp_y, offsets, sizes):
-    """Bound of one hevc_resid launch. Bytes: the levels, the TU and QP
-    maps and the offsets in, the int16 planes out. Operations, for the
+    """Bound of one hevc_resid launch. Bytes: the levels, the TU map, the
+    QP of each cell (for chroma the luma cells (2 cy, 2 cx) only, a
+    quarter of qp_y) and the offsets in, the int16 planes out. Operations, for the
     blocks this run's inputs need transformed (the origin cell holds a
     size of `sizes` and a level is not zero): per sample of an n x n block
     and stage, the partial butterfly's multiply-adds, two to an int32
@@ -859,7 +870,8 @@ def resid_bound(coeffs, tu, qp_y, offsets, sizes):
             nz = (c.reshape(F, H // n, n, W // n, n) != 0).any(4).any(2)
             ops += int((origin & nz).sum()) * n * n * per
     out = 2 * sum(c.numel() for c in coeffs)
-    return bound_ms(nbytes(*coeffs, tu, qp_y, *(offsets or ())) + out, ops)
+    qp = qp_y if offsets is None else qp_y[:, ::2, ::2]
+    return bound_ms(nbytes(*coeffs, tu, qp, *(offsets or ())) + out, ops)
 
 
 LUMA_SIZES, CHROMA_SIZES = HR.LUMA_SIZES, HR.CHROMA_SIZES
@@ -875,6 +887,34 @@ def resid_once(args, kw, what):
     check(e == 0 and got.dtype == torch.int16,
           f"{what}: hevc_resid != planes_reference")
     return got, e
+
+
+# hevc_resid launches a run of event_ms takes
+RESID_RUN = 20
+
+
+def resid_figures(args, kw, what):
+    """One hevc_resid launch of a path against planes_reference, bit for
+    bit, and its times: ms a launch by CUDA events (the median of REPS
+    runs of RESID_RUN launches after a warm-up, queued behind a spin
+    kernel), the profiler's device ms of one launch (scan_ms, with the
+    launches it traced), and its bound."""
+    _, e = resid_once(args, kw, what)
+    fn = lambda: HR.resid_planes(*args, **kw)
+    ms = statistics.median(event_ms(fn, RESID_RUN) for _ in range(REPS))
+    _, traced_ms, traced = scan_ms(fn, "hevc_resid_butterfly")
+    return {"err": e, "ms": ms, "traced_ms": traced_ms, "traced": traced,
+            "bound": resid_bound(*args, kw.get("offsets"), kw["sizes"])}
+
+
+def say_resid(head, f, extra=""):
+    traced = (f"{f['traced_ms']:.4f} ms by the profiler, "
+              f"{timing_of(f['traced'])}" if f["traced"] else
+              f"the profiler traced none of {4 * REPS} runs")
+    say(f"{head}: {f['ms']:.4f} ms a launch by CUDA events (the median of "
+        f"{REPS} runs of {RESID_RUN}), {traced}; bound {f['bound'][0]:.5f} "
+        f"ms ({f['bound'][2]}), {100 * f['bound'][0] / f['ms']:.1f}% of "
+        f"it{extra}")
 
 
 def resid_path(dev, card):
@@ -895,7 +935,8 @@ def resid_path(dev, card):
 
     cases = [("intra luma", 2, 96, 128, False, LUMA_SIZES, True, None),
              ("inter luma", 2, 96, 128, False, LUMA_SIZES, False, None),
-             ("Cb + Cr", 3, 48, 64, True, CHROMA_SIZES, False, None)]
+             ("Cb + Cr", 3, 48, 64, True, CHROMA_SIZES, False, None),
+             ("Cb + Cr 48x80", 2, 48, 80, True, CHROMA_SIZES, False, None)]
     cases += [(f"luma 2^{v}", 1, 64, 64, False, LUMA_SIZES, True, v)
               for v in LUMA_SIZES]
     cases += [(f"chroma 2^{v}", 2, 32, 32, True, CHROMA_SIZES, False, v)
@@ -925,9 +966,10 @@ def resid_path(dev, card):
                 err, n = max(err, e), n + 1
     say(f"phase 30: hevc_resid == planes_reference on {n} seeded launches "
         f"(intra luma with the DST, inter luma, Cb + Cr with per-frame "
-        f"offsets, maps of one TU size; every QP 0..51, levels at the int16 "
-        f"extremes, all-zero blocks, random overlapping TU maps, cells "
-        f"outside the sizes; levels all zero; no TU), max_abs_err {err}")
+        f"offsets, also 48x80 (areas half outside the planes), maps of one "
+        f"TU size; every QP 0..51, levels at the int16 extremes, all-zero "
+        f"blocks, random overlapping TU maps, cells outside the sizes; "
+        f"levels all zero; no TU), max_abs_err {err}")
 
     # the main path's shapes: the batch of 16's planes from stack_plans
     plans = parse_hevc_intra_plans(fixture_batch_stream(),
@@ -939,36 +981,77 @@ def resid_path(dev, card):
                          dict(sizes=CHROMA_SIZES, offsets=(a[19], a[20])))}
     figs = {}
     for key, (args, kw) in shapes.items():
-        _, e = resid_once(args, kw, f"phase 30 batch {key}")
-        err = max(err, e)
-        _, ms, traced = scan_ms(lambda: HR.resid_planes(*args, **kw),
-                                "hevc_resid_kernel")
-        plain = statistics.median(
+        f = resid_figures(args, kw, f"phase 30 batch {key}")
+        err = max(err, f["err"])
+        f["plain"] = statistics.median(
             kernel_busy(lambda: HR.planes_reference(*args, **kw))[1]
             for _ in range(REPS))
-        bound = resid_bound(*args, kw.get("offsets"), kw["sizes"])
-        figs[key] = (ms, plain, bound, traced)
+        figs[key] = f
         F, H, W = args[0][0].shape
-        say(f"phase 30 [{card}]: hevc_resid {key} at the batch of {F} "
-            f"({len(args[0])} x {F} planes {W}x{H}): {ms:.4f} ms a launch "
-            f"({timing_of(traced)}), plain stage "
-            f"(planes_reference) {plain:.3f} ms device busy (median of "
-            f"{REPS}); bound {bound[0]:.5f} ms ({bound[2]})")
-    ms = lambda i: statistics.mean(f[i] for f in figs.values())
+        say_resid(f"phase 30 [{card}]: hevc_resid {key} at the batch of {F} "
+                  f"({len(args[0])} x {F} planes {W}x{H})", f,
+                  f"; plain stage (planes_reference) {f['plain']:.3f} ms "
+                  f"device busy (median of {REPS})")
+    # where the luma launch's time goes: maps and levels derived from the
+    # batch's that isolate one kind of work, timed the same way
+    y, tu, qp = shapes["luma"][0][0][0], a[10], a[13]
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    dense = torch.randint(-400, 401, y.shape, device=dev, generator=g,
+                          dtype=torch.int16)
+    kinds = {"without its 32x32 TUs": (y, torch.where(tu == 5, 0, tu)),
+             "with only its 32x32 TUs": (y, torch.where(tu == 5, tu, 0)),
+             "without the DC shortcut (no zero level)":
+                 (torch.where(y != 0, y, 1), tu)}
+    kinds.update({f"all {1 << v}x{1 << v}, levels dense in -400..400":
+                  (dense, torch.full_like(tu, v)) for v in LUMA_SIZES})
+    for kind, (lev, m) in kinds.items():
+        f = resid_figures(((lev,), m, qp), shapes["luma"][1],
+                          f"phase 30 luma {kind}")
+        err = max(err, f["err"])
+        say_resid(f"phase 30 [{card}]: hevc_resid luma at the batch of 16, "
+                  f"{kind}", f)
+    mean = lambda k: statistics.mean(f[k] for f in figs.values())
     rec = {"name": "hevc_resid", "route": "cuda",
            "source": "jmcodec_tpu_torch/csrc/hevc_resid.cu",
            "replaces": "jmcodec_tpu/kernels/hevc_tiles.py:84",
-           "launches": 0, "max_abs_err": err, "ms": ms(0),
-           "plain_ms": ms(1),
-           "bound_ms": statistics.mean(f[2][0] for f in figs.values()),
-           "bound_by": max(f[2] for f in figs.values())[1],
-           "library_ms": None, "stage_ms": sum(f[0] for f in figs.values()),
-           "plain_stage_ms": sum(f[1] for f in figs.values())}
-    for key, (k_ms, p_ms, bound, traced) in figs.items():
-        rec.update({f"ms_{key}": k_ms, f"plain_ms_{key}": p_ms,
-                    f"bound_ms_{key}": bound[0],
-                    f"runs_traced_{key}": traced})
+           "launches": 0, "max_abs_err": err, "ms": mean("ms"),
+           "plain_ms": mean("plain"),
+           "bound_ms": statistics.mean(f["bound"][0] for f in figs.values()),
+           "bound_by": max(f["bound"] for f in figs.values())[1],
+           "library_ms": None, "ms_traced": mean("traced_ms"),
+           "stage_ms": sum(f["ms"] for f in figs.values()),
+           "plain_stage_ms": sum(f["plain"] for f in figs.values())}
+    for key, f in figs.items():
+        rec.update({f"ms_{key}": f["ms"], f"ms_traced_{key}": f["traced_ms"],
+                    f"plain_ms_{key}": f["plain"],
+                    f"bound_ms_{key}": f["bound"][0],
+                    f"runs_traced_{key}": f["traced"]})
     return rec
+
+
+def resid_inter(card, cap, rec):
+    """Phase 10's hevc_resid launches of one inter picture (cap: their
+    arguments, calls_of's; its inter residuals, luma and Cb + Cr, then its
+    intra ones), each against planes_reference and timed as phase 30 times
+    the batch's; added to rec (phase 30's record) when there is one."""
+    check(len(cap) == 4, f"phase 10: {len(cap)} hevc_resid launches")
+    keys = ("inter_luma", "inter_chroma", "intra_luma", "intra_chroma")
+    figs = {k: resid_figures(a, kw, f"phase 10 {k}")
+            for k, (a, kw) in zip(keys, cap)}
+    for (k, f), (a, _) in zip(figs.items(), cap):
+        F, H, W = a[0][0].shape
+        say_resid(f"phase 10 [{card}]: hevc_resid {k.replace('_', ' ')} of "
+                  f"the first P picture ({W}x{H})", f)
+    total = sum(f["ms"] for f in figs.values())
+    bound = sum(f["bound"][0] for f in figs.values())
+    say(f"phase 10 [{card}]: hevc_resid's four launches of the first P "
+        f"picture {total:.4f} ms, bound {bound:.5f} ms")
+    if rec is not None:
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 max(f["err"] for f in figs.values()))
+        rec["ms_p_picture"], rec["bound_ms_p_picture"] = total, bound
+        rec.update({f"ms_p_{k}": f["ms"] for k, f in figs.items()})
 
 
 def hevc_path(dev, card, err):
@@ -986,8 +1069,8 @@ def hevc_path(dev, card, err):
     args = HTT.stack_plans(plans, dev)
     torch.cuda.synchronize()
     reset_counts()
-    (Y, U, V), scans = hevc_scan_capture(
-        lambda: HTT.decode_frames_hevc_batch(*args))
+    (Y, U, V), scans = calls_of(
+        HTT, "scan_planes", lambda: HTT.decode_frames_hevc_batch(*args))
     torch.cuda.synchronize()
     launches = hevc_scan_counts("phase 4", 2)
     check(ID.LAUNCHES == 0, "dequant_idct launched on the HEVC path")
@@ -1333,11 +1416,12 @@ def kernel_launches(fn):
     return kernel_busy(fn)[0]
 
 
-def hevc_inter_path(dev, card, walk_rec, scan_rec, err):
+def hevc_inter_path(dev, card, walk_rec, scan_rec, err, resid_rec):
     """Phases 9-10 (err: phase 3's). Returns the hevc_walk and hevc_scan
     records (walk_rec and scan_rec with the inter path's times added, or
     records of this path alone when the intra path was not driven) and
-    the path's figures."""
+    the path's figures; adds the first P picture's hevc_resid times to
+    resid_rec (phase 30's record)."""
     digests = fixture_digests(INTER_DIGESTS)
     stream = inter_fixture_stream()
 
@@ -1390,8 +1474,10 @@ def hevc_inter_path(dev, card, walk_rec, scan_rec, err):
     check(plans[1].ref_pocs == [p0.poc], "picture 1 is not a P picture")
     i_planes = decode_plans(plans[:1], dev)[0]
     refs = [HTT.prep_hevc_ref(*i_planes)]
-    _, scans = hevc_scan_capture(
-        lambda: HTT.decode_plan_inter(plans[1], refs, dev))
+    (_, scans), resids = calls_of(HR, "resid_planes", lambda: calls_of(
+        HTT, "scan_planes", lambda: HTT.decode_plan_inter(plans[1], refs,
+                                                          dev)))
+    resid_inter(card, resids, resid_rec)
     C = 1 << p0.log2_ctb
     chain = p0.Wp // C + HT.skew_for(C) * (p0.Hp // C - 1)
     scan_t, scan_err = {}, 0
@@ -2843,7 +2929,7 @@ def main() -> int:
                                        "h264_inter", "session",
                                        "hevc_host", "encode", "parallel",
                                        "tools", "bench", "quality",
-                                       "h264_scan"),
+                                       "h264_scan", "resid"),
                     help="drive one path only (no complete kernels' record)")
     ap.add_argument("--sp", type=int, default=1,
                     help="N > 1: only the row-sharded decode on N cards "
@@ -2882,6 +2968,8 @@ def main() -> int:
                 "parallel", "tools", "bench"):
         walk_err = check_walk_shapes(dev)
         scan_err = check_scan_planes(dev)
+    if only in (None, "hevc", "hevc_inter", "session", "hevc_host",
+                "parallel", "tools", "bench", "resid"):
         resid_rec = resid_path(dev, card)
         torch.cuda.empty_cache()
     if only in (None, "hevc"):
@@ -2897,7 +2985,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     if only in (None, "hevc_inter"):
         walk_rec, scan_rec, fig = hevc_inter_path(dev, card, walk_rec,
-                                                  scan_rec, walk_err)
+                                                  scan_rec, walk_err,
+                                                  resid_rec)
         say(json.dumps(fig))
         torch.cuda.empty_cache()
     if only in (None, "h264_inter"):

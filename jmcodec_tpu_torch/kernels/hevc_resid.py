@@ -32,14 +32,16 @@ residual_reference is jmcodec_tpu's _residual_plane
 (kernels/hevc_tiles.py:84), which the kernel replaces: every block through
 the transform at every size, float64 matrix products (each partial sum is
 an integer below 2^27, so float64 is exact), a mask a size. The kernel
-transforms only the blocks that hold their size and a level, in int32.
+transforms only the blocks that hold their size and a level, in int32, as
+partial butterflies whose matrix entries are compile-time constants of the
+source (csrc/hevc_resid.cu: dct_basis, dst4; LEVEL_SCALE and QPC_T in its
+constant memory), a 32x32 area of one plane a warp.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..codec.hevc import transform as HTR
@@ -55,27 +57,6 @@ LUMA_SIZES, CHROMA_SIZES = (2, 3, 4, 5), (2, 3, 4)
 # Kernel launches made by resid_planes(); read by callers that must show
 # the main path went through the kernel.
 LAUNCHES = 0
-
-# the int8 table the kernel reads (csrc/hevc_resid.cu: kTab*): the 32-point
-# DCT (the n-point one is its rows 0, 32/n, ..., first n columns), DST4,
-# LEVEL_SCALE, QPC_T
-TAB_DCT, TAB_DST, TAB_LS, TAB_QPC, TAB_LEN = 0, 1024, 1040, 1048, 1106
-
-
-def tables() -> np.ndarray:
-    """The kernel's constant table, int8, from the codec's own tables."""
-    tab = np.zeros(TAB_LEN, np.int64)
-    tab[TAB_DCT:TAB_DST] = HTR.DCT[32].ravel()
-    tab[TAB_DST:TAB_LS] = HTR.DST4.ravel()
-    tab[TAB_LS:TAB_LS + 6] = HTR.LEVEL_SCALE
-    tab[TAB_QPC:TAB_LEN] = HT.QPC_T
-    if np.abs(tab).max() > 127:
-        raise ValueError("a table entry does not fit int8")
-    return tab.astype(np.int8)
-
-
-_TABLE = tables()
-
 
 # ---------------------------------------------------------------------------
 # the plain version
@@ -212,7 +193,7 @@ def _load():
         from . import _build
         lib = ctypes.CDLL(_build.build())
         fn = lib.hevc_resid_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -233,12 +214,11 @@ def resid_planes(coeffs, tu, qp_y, *, sizes, dst4=False, offsets=None):
     _check(coeffs, tu, qp_y, sizes, offsets)
     F, H, W = coeffs[0].shape
     out = torch.empty((len(coeffs) * F, H, W), dtype=torch.int16, device=dev)
-    tab = _t(_TABLE, dev, torch.int8)
     ptr = lambda seq, k: seq[k].data_ptr() if seq and k < len(seq) else None
     with torch.cuda.device(dev):
         err = _load().hevc_resid_launch(
             ptr(coeffs, 0), ptr(coeffs, 1), tu.data_ptr(), qp_y.data_ptr(),
-            ptr(offsets, 0), ptr(offsets, 1), tab.data_ptr(), out.data_ptr(),
+            ptr(offsets, 0), ptr(offsets, 1), out.data_ptr(),
             F, H, W, int(dst4), int(offsets is not None),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

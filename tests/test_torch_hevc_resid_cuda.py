@@ -4,7 +4,10 @@ resid_planes, csrc/hevc_resid.cu) equals its plain torch version
 tools/fixtures.synth_resid_planes (every QP 0..51, levels at -32768 and
 32767, all-zero blocks, random per-cell TU maps whose blocks overlap, cells
 outside `sizes`): intra luma with the DST, the inter luma form, Cb + Cr
-with per-frame offsets, maps of one TU size under the full set; on levels
+with per-frame offsets, maps of one TU size under the full set; on
+columns whose one level is in their block's first or last row, on blocks
+of every size nested in one area, and on chroma planes whose sides are
+multiples of 16 but not of 32; on levels
 all zero and on maps without a TU of `sizes`; on the 1080p fixture's plans
 (luma and Cb + Cr, as decode_frames_hevc_scan gives them); and the decodes
 of the committed small HEVC streams, all-intra and inter, launch it twice a
@@ -98,6 +101,71 @@ def test_zero_levels_and_no_tu(dev):
     assert not _check(zero, tu, qp, offs, LUMA, True).any()
     none = torch.where(tu >= 2, 0, tu)
     assert not _check(coeffs, none, qp, offs, LUMA, True).any()
+
+
+@pytest.mark.parametrize("row", ["first", "last"])
+@pytest.mark.parametrize("form,log2", [
+    (form, v) for form in ("intra_luma", "inter_luma", "chroma")
+    for v in (CHROMA if form == "chroma" else LUMA)])
+def test_one_level_a_column(dev, form, log2, row):
+    """Columns whose only level is in their block's first row, or in its
+    last (where a column stage that stops at its last level would go
+    wrong): maps of one TU size, every column of a block a different
+    level, QPs from 0 to 51."""
+    chroma = form == "chroma"
+    sizes = CHROMA if chroma else LUMA
+    n, F, H, W = 1 << log2, 2, 64, 96
+    rng = np.random.default_rng(7 * log2 + (row == "last"))
+    coeffs = []
+    for _ in range(2 if chroma else 1):
+        c = np.zeros((F, H, W), np.int16)
+        r = 0 if row == "first" else n - 1
+        c[:, r::n] = rng.integers(-3000, 3001, (F, H // n, W))
+        c[:, r::n][rng.random((F, H // n, W)) < 0.02] = -32768
+        coeffs.append(c)
+    tu = np.full((F, H // 4, W // 4), log2, np.int8)
+    qp = rng.integers(0, 52, (F, (1 + chroma) * H // 4,
+                              (1 + chroma) * W // 4)).astype(np.int8)
+    offs = (tuple(rng.integers(-12, 13, F).astype(np.int32)
+                  for _ in range(2)) if chroma else None)
+    got = _check(*_on(dev, coeffs, tu, qp, offs), sizes,
+                 form == "intra_luma")
+    assert got.any()
+
+
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_nested_blocks_of_every_size(dev, chroma):
+    """One block of each size inside the largest block of its area (the
+    origins of a 32x32 (luma), 16x16, 8x8 and 4x4 block nested in every
+    area), on seeded levels at the extremes and QP 51: the overlapping
+    blocks' sum."""
+    sizes = CHROMA if chroma else LUMA
+    coeffs, _, qp, offs = synth_resid_planes(2, 64, 64, seed=9,
+                                             chroma=chroma, sizes=sizes)
+    tu = np.zeros((2, 16, 16), np.int8)
+    for y0 in range(0, 16, 8):
+        for x0 in range(0, 16, 8):
+            if not chroma:
+                tu[:, y0, x0] = 5
+            tu[:, y0 + 4, x0 + 4] = 4
+            tu[:, y0 + 6, x0 + 6], tu[:, y0 + 7, x0 + 7] = 3, 2
+    if chroma:  # the 16x16 origins of every area, without a 32x32 block
+        tu[:, ::8, ::8] = 4
+    qp = np.full_like(qp, 51)
+    got = _check(*_on(dev, coeffs, tu, qp, offs), sizes, not chroma)
+    assert got.any()
+
+
+@pytest.mark.parametrize("frames,H,W", [(1, 16, 16), (2, 48, 80),
+                                        (3, 80, 48), (1, 112, 144)])
+def test_chroma_ragged_areas(dev, frames, H, W):
+    """Chroma planes whose height and width are multiples of 16 but not of
+    32: the kernel's 32x32 areas of the last row and column lie half
+    outside the plane."""
+    args = _on(dev, *synth_resid_planes(frames, H, W, seed=H + W,
+                                        chroma=True, sizes=CHROMA))
+    got = _check(*args, CHROMA, False)
+    assert got.any()
 
 
 def test_1080p_fixture_plans(dev):

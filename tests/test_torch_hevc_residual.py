@@ -6,11 +6,11 @@ int16 clips, at one size and mixed, intra luma (the DST) and the inter
 form (the DCT at 4x4), with maps holding 0 and values outside `sizes`;
 planes_reference, the kernel's plain version in its layout, with the
 batch's chroma QP through chroma_qp and per-frame offsets, and its int16
-output (the sum of overlapping blocks, which int16 holds); the kernel's
-table
-against the codec's; resid_planes' checks and its CPU dispatch; and the
-residual stage's two routes in hevc_tiles. The kernel itself runs only on
-the card (tests/test_torch_hevc_resid_cuda.py)."""
+output (the sum of overlapping blocks, which int16 holds); the constants
+the kernel embeds against the codec's, and a numpy model of its partial
+butterflies against the matrix products; resid_planes' checks and its CPU
+dispatch; and the residual stage's two routes in hevc_tiles. The kernel
+itself runs only on the card (tests/test_torch_hevc_resid_cuda.py)."""
 
 import os
 import re
@@ -145,24 +145,130 @@ def test_planes_reference_int16_holds_the_sum():
     assert got.dtype == torch.int16 and np.array_equal(got.numpy(), want)
 
 
-def test_kernel_table_is_the_codecs():
-    """The kernel's int8 table holds the codec's matrices (the n-point DCT
-    as rows 0, 32/n, ... of the 32-point one), LEVEL_SCALE and QPC_T, at
-    the offsets csrc/hevc_resid.cu names."""
-    tab = HR.tables().astype(np.int32)
-    dct32 = tab[HR.TAB_DCT:HR.TAB_DCT + 1024].reshape(32, 32)
-    for n in (4, 8, 16, 32):
-        assert np.array_equal(dct32[::32 // n, :n], HTR.DCT[n])
-    assert np.array_equal(tab[HR.TAB_DST:HR.TAB_DST + 16].reshape(4, 4),
-                          HTR.DST4)
-    assert np.array_equal(tab[HR.TAB_LS:HR.TAB_LS + 6], HTR.LEVEL_SCALE)
-    assert np.array_equal(tab[HR.TAB_QPC:HR.TAB_LEN], HT.QPC_T)
-    assert np.array_equal(HT.QPC_T, JT._QPC_T)
+def _cu_constants():
+    """The constants csrc/hevc_resid.cu embeds: dct_basis's and dst4's
+    cases, its __constant__ arrays."""
     src = open(CSRC).read()
-    consts = dict(re.findall(r"constexpr int (kTab\w+) = (\d+);", src))
-    assert {k: int(v) for k, v in consts.items()} == {
-        "kTabDct": HR.TAB_DCT, "kTabDst": HR.TAB_DST, "kTabLs": HR.TAB_LS,
-        "kTabQpc": HR.TAB_QPC, "kTabLen": HR.TAB_LEN}
+
+    def cases(fn):
+        body = src[src.index(f"constexpr int {fn}(int"):]
+        body = body[:body.index("\n}\n")]
+        got = re.findall(r"case (\d+): return (-?\d+);", body)
+        assert [int(k) for k, _ in got] == list(range(len(got)))
+        return np.array([int(v) for _, v in got])
+
+    arrays = {name: np.array([int(v) for v in body.split(",")])
+              for name, n, body in re.findall(
+                  r"__constant__ int (\w+)\[(\d+)\] = \{([^}]*)\};", src)
+              if len(body.split(",")) == int(n)}
+    return src, cases("dct_basis"), cases("dst4"), arrays
+
+
+def _cos64(basis, a):
+    """csrc/hevc_resid.cu's cos64: 64 cos(a pi / 64) from the basis."""
+    a, s = a & 127, 1
+    if a > 64:
+        a, s = a - 64, -1
+    if a > 32:
+        a, s = 64 - a, -s
+    return s * int(basis[a])
+
+
+def _cu_dct(basis, n):
+    """csrc/hevc_resid.cu's dct<n>(k, j) as an n x n matrix."""
+    return np.array([[_cos64(basis, k * (32 // n) * (2 * j + 1))
+                      for j in range(n)] for k in range(n)])
+
+
+def test_kernel_table_is_the_codecs():
+    """The constants the kernel embeds are the codec's: the DCT matrices
+    its dct<n>(k, j) builds from dct_basis (the 32-point DCT's first
+    column) by symmetry equal transform.DCT[n] at every size, dst4 equals
+    DST4, and its constant memory holds LEVEL_SCALE and QPC_T (the JAX
+    package's _QPC_T) and no transform matrix."""
+    src, basis, dst, arrays = _cu_constants()
+    assert len(basis) == 33 and len(dst) == 16
+    for n in (4, 8, 16, 32):
+        assert np.array_equal(_cu_dct(basis, n), HTR.DCT[n])
+    assert np.array_equal(dst.reshape(4, 4), HTR.DST4)
+    assert set(arrays) == {"kLevelScale", "kQpcT"}
+    assert np.array_equal(arrays["kLevelScale"], HTR.LEVEL_SCALE)
+    assert np.array_equal(arrays["kQpcT"], HT.QPC_T)
+    assert np.array_equal(HT.QPC_T, JT._QPC_T)
+    assert "kTab" not in src and "tab[" not in src
+
+
+def _butterfly(x, n, basis):
+    """A numpy model of csrc/hevc_resid.cu's idct<n> on the columns of x
+    [n, cols]: the even inputs through the n/2-point butterfly, the odd
+    ones through the odd rows' products, y[j] = E[j] + O[j], y[n-1-j] =
+    E[j] - O[j]; only x[0] may leave int16 (its rounding bias)."""
+    if n == 1:
+        return _cos64(basis, 0) * x
+    e = _butterfly(x[0::2], n // 2, basis)
+    odd = np.array([[_cos64(basis, (2 * m + 1) * (32 // n) * (2 * j + 1))
+                     for m in range(n // 2)] for j in range(n // 2)])
+    # the kernel takes the odd inputs two at a time (__dp2a_lo): int16
+    # inputs against int8 entries
+    assert -32768 <= x[1::2].min() and x[1::2].max() <= 32767
+    assert np.abs(odd).max() <= 127
+    o = odd @ x[1::2]
+    return np.concatenate([e + o, (e - o)[::-1]])
+
+
+def _fast_dst(x, bias, dst):
+    """A numpy model of csrc/hevc_resid.cu's idst4 (HM's fastInverseDst)
+    on the columns of x [4, cols], with the rounding bias."""
+    a, b, c = dst[0], dst[1], dst[2]
+    c0, c1, c2 = x[0] + x[2], x[2] + x[3], x[0] - x[3]
+    c3 = c * x[1] + bias
+    return np.stack([a * c0 + b * c1 + c3, b * c2 - a * c1 + c3,
+                     c * (x[0] - x[2] + x[3]) + bias,
+                     b * c0 + a * c2 - (c3 - 2 * bias)])
+
+
+def _stage(x, n, bias, basis, dst):
+    """One stage of the kernel's transform before its shift: the DST, or
+    the DCT with its rounding bias on the DC input (row 0 is 64)."""
+    if dst is not None:
+        return _fast_dst(x, bias, dst)
+    x = x.copy()
+    x[0] += bias // 64
+    return _butterfly(x, n, basis)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, "dst4"])
+def test_butterfly_is_the_matrix_product(n):
+    """The kernel's decomposition (modelled in numpy on the constants the
+    .cu embeds) equals the direct products of transform.DCT[n] / DST4 on
+    seeded int16 columns with the extremes, both stages' rounding biases
+    included and every partial sum below 2^27; and the two stages with
+    their shifts and clips equal hevc_resid's plain _itransform_blocks on
+    seeded blocks."""
+    _, basis, dst, _ = _cu_constants()
+    is_dst = n == "dst4"
+    n = 4 if is_dst else n
+    m = (HTR.DST4 if is_dst else HTR.DCT[n]).astype(np.int64)
+    rng = np.random.default_rng(n + 100 * is_dst)
+    x = rng.integers(-32768, 32768, (n, 256))
+    x[:, :4] = [-32768, 32767, 0, 1]                # constant columns
+    x[:, 4] = np.where(m[:, 0] < 0, -32768, 32767)  # the largest sum
+    x[:, 5] = -x[:, 4] - 1
+    for bias in (0, 64, 2048):
+        got = _stage(x, n, bias, basis, dst if is_dst else None)
+        want = m.T @ x + bias
+        assert np.array_equal(got, want)
+        assert np.abs(got).max() < 2 ** 27
+    blocks = rng.integers(-32768, 32768, (8, n, n))
+    blocks[0] = 32767
+    clip = lambda v: np.clip(v, -32768, 32767)
+    want = HR._itransform_blocks(torch.from_numpy(blocks.astype(np.int32)),
+                                 n.bit_length() - 1, is_dst).numpy()
+    for b, w in zip(blocks, want):
+        d = dst if is_dst else None
+        e = clip(_stage(b, n, 64, basis, d) >> 7)
+        r = clip(_stage(e.T, n, 2048, basis, d) >> 12).T
+        assert np.array_equal(r, w)
 
 
 def _small(chroma):
